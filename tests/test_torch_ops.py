@@ -1,0 +1,227 @@
+"""Parity of the PyTorch port's ops (`slowfast_vos_tpu_torch/ops/`) with the
+JAX package on the same seeded inputs: boxes, anchors, NMS and top-k
+(index-exact, on tie-heavy inputs), the multi-scale RoIAlign's plain version
+(against the JAX gather and the Pallas kernel in interpret mode) and the
+mask paste. The CUDA kernel's own check needs the card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_common import cuda_device, t  # noqa: F401 (fixture)
+from slowfast_vos_tpu.models.anchors import fpn_anchors as jax_fpn_anchors
+from slowfast_vos_tpu.ops import boxes as jboxes
+from slowfast_vos_tpu.ops import nms as jnms
+from slowfast_vos_tpu.ops.paste_masks import paste_masks_in_image as jax_paste
+from slowfast_vos_tpu.ops.roi_align import fpn_level_assignment as jax_levels
+from slowfast_vos_tpu.ops.roi_align import multiscale_roi_align as jax_roi_align
+from slowfast_vos_tpu.ops.roi_align_pallas import multiscale_roi_align_pallas
+from slowfast_vos_tpu_torch.models.anchors import fpn_anchors
+from slowfast_vos_tpu_torch.ops import boxes as pboxes
+from slowfast_vos_tpu_torch.ops import nms as pnms
+from slowfast_vos_tpu_torch.ops import roi_align as pra
+from slowfast_vos_tpu_torch.ops.paste_masks import paste_masks_in_image
+
+SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
+
+
+def random_boxes(rng, n, extent=100.0, quantum=None):
+    xy = rng.uniform(0, extent, (n, 2))
+    wh = rng.uniform(1, extent / 2, (n, 2))
+    b = np.concatenate([xy, xy + wh], 1)
+    if quantum:  # coarse grid -> duplicate boxes and exact IoU ties
+        b = np.round(b / quantum) * quantum
+    return b.astype(np.float32)
+
+
+def test_anchors_equal_jax():
+    hws = [(32, 48), (16, 24), (8, 12), (4, 6), (2, 3)]
+    for a, b in zip(fpn_anchors(hws), jax_fpn_anchors(hws)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_box_ops_match_jax():
+    rng = np.random.default_rng(0)
+    a, b = random_boxes(rng, 40), random_boxes(rng, 30)
+    # f32 elementwise ops in the same order: exact up to 1 ulp.
+    np.testing.assert_allclose(pboxes.box_iou(t(a), t(b)).numpy(), np.asarray(jboxes.box_iou(a, b)), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(pboxes.clip_boxes(t(a), (60.0, 80.0)).numpy(), np.asarray(jboxes.clip_boxes(a, (60.0, 80.0))))
+    np.testing.assert_array_equal(
+        pboxes.remove_small_boxes_mask(t(a), 20.0).numpy(), np.asarray(jboxes.remove_small_boxes_mask(a, 20.0))
+    )
+    w = (10.0, 10.0, 5.0, 5.0)
+    enc = pboxes.encode_boxes(t(a[:30]), t(b), w)
+    np.testing.assert_allclose(enc.numpy(), np.asarray(jboxes.encode_boxes(a[:30], b, w)), rtol=1e-5, atol=1e-5)
+    deltas = rng.normal(size=(40, 4)).astype(np.float32) * 3  # some dw/dh hit the clamp
+    np.testing.assert_allclose(
+        pboxes.decode_boxes(t(deltas), t(a), w).numpy(), np.asarray(jboxes.decode_boxes(deltas, a, w)), rtol=1e-5, atol=1e-4
+    )
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+def test_nms_mask_index_exact(thr):
+    """Quantized boxes and scores: duplicates, equal scores and IoU ties.
+    Keep mask and order must equal the JAX fixpoint's, index for index."""
+    rng = np.random.default_rng(1)
+    boxes = random_boxes(rng, 300, quantum=8.0)
+    scores = (np.round(rng.uniform(0, 1, 300) * 8) / 8).astype(np.float32)
+    valid = rng.uniform(size=300) > 0.1
+    keep, order = pnms.nms_mask(t(boxes), t(scores), t(valid), iou_threshold=thr)
+    jkeep, jorder = jnms.nms_mask(boxes, scores, valid, iou_threshold=thr, algorithm="fixpoint")
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    assert 0 < keep.sum() < valid.sum()
+
+
+def test_nms_batched_over_leading_dims_equals_per_problem():
+    rng = np.random.default_rng(2)
+    boxes = np.stack([random_boxes(rng, 120, quantum=4.0) for _ in range(6)]).reshape(2, 3, 120, 4)
+    scores = (np.round(rng.uniform(0, 1, (2, 3, 120)) * 16) / 16).astype(np.float32)
+    keep, order = pnms.nms_mask(t(boxes), t(scores), iou_threshold=0.7)
+    for i in range(2):
+        for j in range(3):
+            jk, jo = jnms.nms_mask(boxes[i, j], scores[i, j], iou_threshold=0.7)
+            np.testing.assert_array_equal(keep[i, j].numpy(), np.asarray(jk))
+            np.testing.assert_array_equal(order[i, j].numpy(), np.asarray(jo))
+
+
+def test_batched_nms_and_top_k_index_exact():
+    """Class-keyed NMS (offset over ALL boxes, invalid ones included) and the
+    static top-k with ties and fewer candidates than k."""
+    rng = np.random.default_rng(3)
+    boxes = random_boxes(rng, 200, quantum=6.0)
+    boxes[5] = [900.0, 900.0, 950.0, 950.0]  # invalid but sets the offset
+    scores = (np.round(rng.uniform(0, 1, 200) * 10) / 10).astype(np.float32)
+    labels = rng.integers(1, 4, 200).astype(np.int32)
+    valid = rng.uniform(size=200) > 0.2
+    valid[5] = False
+    keep, _ = pnms.batched_nms_mask(t(boxes), t(scores), t(labels), t(valid), iou_threshold=0.5)
+    jkeep, jorder = jnms.batched_nms_mask(boxes, scores, labels, valid, iou_threshold=0.5)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    for k in (10, 150, 250):
+        idx, ok = pnms.top_k_after_nms(keep, t(scores), k)
+        jidx, jok = jnms.top_k_after_nms(jkeep, jorder, scores, k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+
+
+def test_paste_masks_matches_jax():
+    rng = np.random.default_rng(4)
+    masks = rng.uniform(size=(7, 28, 28)).astype(np.float32)
+    boxes = random_boxes(rng, 7, extent=90.0)
+    boxes[0] = [-5.3, -2.2, 40.7, 70.1]  # partly outside the image
+    boxes[1] = [10.0, 10.0, 10.4, 10.2]  # sub-pixel
+    valid = np.array([True, True, True, False, True, True, True])
+    got = paste_masks_in_image(t(masks), t(boxes), (60, 100), t(valid)).numpy()
+    want = np.asarray(jax_paste(masks, boxes, (60, 100), valid))
+    np.testing.assert_allclose(got, want, atol=1e-5)  # f32 matmul order
+
+
+def _pyramid(rng, frames, c=8):
+    """DAVIS-like pyramid geometry at 1/4 linear scale
+    (tests/test_roi_align_pallas.py)."""
+    return [rng.normal(size=(frames, 192 // s, 336 // s, c)).astype(np.float32) for s in (4, 8, 16, 32)]
+
+
+def _rois(rng, n):
+    xy = rng.uniform(-10, 300, (n, 2))
+    wh = rng.uniform(4, 120, (n, 2))
+    extra = np.array(
+        [
+            [0.0, 0.0, 1.5, 1.5],  # sub-pixel box
+            [330.0, 188.0, 345.0, 200.0],  # past the bottom-right edge
+            [50.0, 50.0, 50.0, 50.0],  # degenerate (zero area)
+            [10.0, 80.0, 190.0, 125.0],  # 4:1 aspect, inside the Pallas patch
+            [-20.0, -20.0, 4.0, 4.0],  # mostly off-canvas
+        ],
+        np.float32,
+    )
+    return np.concatenate([np.concatenate([xy, xy + wh], 1).astype(np.float32), extra])
+
+
+def test_level_assignment_matches_jax():
+    rng = np.random.default_rng(5)
+    rois = _rois(rng, 200) * 4
+    np.testing.assert_array_equal(pra.fpn_level_assignment(t(rois)).numpy(), np.asarray(jax_levels(rois)))
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_plain_roi_align_matches_jax_gather_and_pallas(out_size):
+    """The plain version against the JAX gather form (exact semantics, f32
+    sum order only: atol 1e-5) and against the Pallas kernel in interpret
+    mode on rois inside its patch (its own test's tolerance, 2e-4)."""
+    rng = np.random.default_rng(0)
+    feats = _pyramid(rng, 1)
+    rois = _rois(rng, 24)
+    got = pra.multiscale_roi_align([t(f) for f in feats], t(rois[None]), output_size=out_size)[0].numpy()
+    frame = [jnp.asarray(f[0]) for f in feats]
+    want = np.asarray(jax_roi_align(frame, jnp.asarray(rois), SCALES, output_size=out_size))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    pallas = np.asarray(multiscale_roi_align_pallas(frame, jnp.asarray(rois), SCALES, output_size=out_size, interpret=True))
+    np.testing.assert_allclose(got, pallas, atol=2e-4)
+
+
+def test_plain_roi_align_batch_matches_per_frame():
+    """A [T, N] batch with a frame per roi (N not a multiple of 4) equals
+    pooling each frame on its own: frames must not bleed into each other."""
+    rng = np.random.default_rng(1)
+    tt, n = 3, 29
+    feats = [t(f) for f in _pyramid(rng, tt)]
+    rois = t(np.stack([_rois(rng, n - 5) for _ in range(tt)]))
+    got = pra.multiscale_roi_align(feats, rois, output_size=7)
+    assert got.shape == (tt, n, 7, 7, 8)
+    for f in range(tt):
+        want = pra.multiscale_roi_align([fl[f : f + 1] for fl in feats], rois[f : f + 1], output_size=7)
+        np.testing.assert_array_equal(got[f].numpy(), want[0].numpy())
+        jwant = np.asarray(jax_roi_align([jnp.asarray(fl[f].numpy()) for fl in feats], jnp.asarray(rois[f].numpy()), SCALES))
+        np.testing.assert_allclose(got[f].numpy(), jwant, atol=1e-5)
+
+
+def test_plain_roi_align_bf16_keeps_dtype():
+    rng = np.random.default_rng(2)
+    feats = [t(f).to(torch.bfloat16) for f in _pyramid(rng, 2)]
+    rois = t(np.stack([_rois(rng, 11) for _ in range(2)]))
+    got = pra.multiscale_roi_align(feats, rois, output_size=14)
+    want = pra.multiscale_roi_align([f.float() for f in feats], rois, output_size=14)
+    assert got.dtype == torch.bfloat16
+    # bf16 weights and products: a few bf16 roundings of values of order 1.
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=5e-2)
+
+
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
+    """Input checks run before any build or launch, so they are testable
+    without the card."""
+    rng = np.random.default_rng(3)
+    feats = [t(f) for f in _pyramid(rng, 2)]
+    rois = t(np.stack([_rois(rng, 3) for _ in range(2)]))
+    with pytest.raises(ValueError, match="output_size"):
+        pra._check_cuda_inputs(feats, rois, SCALES, 9, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pra._check_cuda_inputs([f.half() for f in feats], rois, SCALES, 7, 2)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        pra._check_cuda_inputs([f.transpose(1, 2) for f in feats], rois, SCALES, 7, 2)
+    with pytest.raises(ValueError, match="float32"):
+        pra._check_cuda_inputs(feats, rois.double(), SCALES, 7, 2)
+    with pytest.raises(ValueError, match="4 FPN levels"):
+        pra._check_cuda_inputs(feats[:3], rois, SCALES[:3], 7, 2)
+    pra._check_cuda_inputs(feats, rois, SCALES, 14, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version(cuda_device):
+    """On the card: the kernel against its plain version, f32 (TF32 off)
+    atol 1e-5 + rtol 1e-5, bf16 against the plain version in f32 on the
+    same bf16 inputs within one bf16 rounding (rtol 2^-8)."""
+    rng = np.random.default_rng(4)
+    feats = [t(f).to(cuda_device) for f in _pyramid(rng, 3, c=64)]
+    rois = t(np.stack([_rois(rng, 40) * 4 for _ in range(3)])).to(cuda_device)
+    for out_size in (7, 14):
+        before = pra.launches[out_size]
+        got = pra.multiscale_roi_align(feats, rois, output_size=out_size)
+        assert pra.launches[out_size] == before + 1
+        want = pra.multiscale_roi_align_plain(feats, rois, output_size=out_size)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        f16 = [f.bfloat16() for f in feats]
+        got = pra.multiscale_roi_align(f16, rois, output_size=out_size).float()
+        want = pra.multiscale_roi_align_plain([f.float() for f in f16], rois, output_size=out_size)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=2.0**-8)
