@@ -7,17 +7,22 @@ Phases, each fatal on failure:
 
 1. build   - compile every hand-written kernel of `slowfast_vos_tpu_torch/csrc`
              with nvcc (one process per source, all started together);
-2. kernels - hold each kernel against its plain PyTorch version at the main
+2. main    - `build_pipeline(3, 3, (480, 854), bf16)` with seeded random
+             weights, `infer_sequence` over a 20-frame clip (first, carry and
+             ragged-tail superchunks), launch counts read around that run,
+             frames/s, peak device memory; one superchunk's real proposals
+             and detection boxes are kept for phases 3 and 5;
+3. kernels - hold each kernel against its plain PyTorch version at the main
              path's shapes (DAVIS 480x854 -> 768x1344 canvas, superchunk 8:
              [8, 1000] proposals for the 7x7 pool, [8, 10] detections for the
-             14x14 pool), in f32 (TF32 off) and bf16;
-3. main    - `build_pipeline(3, 3, (480, 854), bf16)` with seeded random
-             weights, `infer_sequence` over a 20-frame clip (first, carry and
-             ragged-tail superchunks), launch counts read around that run;
-             then a small f32 input through the same entry point on the card
+             14x14 pool, 256 channels), in f32 (TF32 off) and bf16, on
+             synthetic rois with the edge cases and on the main path's own
+             rois, and at 40 channels on the synthetic rois;
+4. reference - a small f32 input through the same entry point on the card
              and on the CPU (the plain versions), compared;
-4. timings - each kernel and its plain version at the main path's shapes,
-             main-path frames/s, peak device memory.
+5. timings - each kernel on both roi sets, with and without the level
+             assignment, against its bound, its per-roi footprint and its
+             plain version.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -58,8 +63,8 @@ def pyramid(t: int, c: int, gen: torch.Generator, dtype) -> list[torch.Tensor]:
 
 
 def rois_for(t: int, n: int, rng: np.random.Generator) -> torch.Tensor:
-    """Proposal-like boxes on the canvas, with tall, wide, sub-pixel,
-    degenerate and off-canvas rois in every frame."""
+    """Proposal-like boxes on the canvas, with rois that make duplicate and
+    degenerate taps in every frame."""
     ch, cw = CANVAS
     xy = rng.uniform(-40, [cw, ch], (t, n, 2))
     wh = rng.uniform(1, 500, (t, n, 2))
@@ -69,8 +74,11 @@ def rois_for(t: int, n: int, rng: np.random.Generator) -> torch.Tensor:
         [10.0, 300.0, 1300.0, 340.0],    # wide, > 30:1
         [200.0, 200.0, 200.6, 200.4],    # sub-pixel
         [50.0, 50.0, 50.0, 50.0],        # zero area
-        [-300.0, -200.0, 20.0, 10.0],    # mostly off-canvas
+        [-300.0, -200.0, 20.0, 10.0],    # mostly off-canvas: invalid samples
         [1330.0, 760.0, 1500.0, 900.0],  # past the bottom-right corner
+        [100.0, 762.0, 106.0, 768.0],    # samples in (H-1, H]: clamped, lo == hi
+        [0.0, 0.0, 1340.0, 760.0],       # P5, 28 distinct x taps at pool7
+        [300.0, 300.0, 330.0, 329.0],    # P2, a bin per ~1 px
     ])
     boxes[:, : min(n, len(extra))] = extra[: min(n, len(extra))]
     return torch.from_numpy(boxes.astype(np.float32)).cuda()
@@ -129,6 +137,26 @@ def roi_align_bound(ra, feats, rois, out_size) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def distinct_taps(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Distinct taps of each roi's valid samples on one axis: [M, S] -> [M]."""
+    big = torch.iinfo(lo.dtype).max
+    srt = torch.cat([torch.where(valid, lo, big), torch.where(valid, hi, big)], 1).sort(1).values
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    return (new & (srt != big)).sum(1)
+
+
+def roi_align_footprint(ra, feats, rois, out_size) -> int:
+    """Bytes the kernel moves through L2: each roi's own distinct taps
+    (rows x columns) x C x element size, plus the output."""
+    c, elem = feats[0].shape[-1], feats[0].element_size()
+    grid = ra.sample_grid([f.shape[1:3] for f in feats], rois, ra.ROI_SCALES, out_size, 2)
+    ny = distinct_taps(grid["y0"], grid["y1"], grid["my"])
+    nx = distinct_taps(grid["x0"], grid["x1"], grid["mx"])
+    m = rois.shape[0] * rois.shape[1]
+    return int((ny * nx).sum()) * c * elem + m * out_size * out_size * c * elem
+
+
 def phase_build(cuda_build) -> None:
     sources = sorted(p.name for p in cuda_build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -142,43 +170,67 @@ def phase_build(cuda_build) -> None:
     log(f"build: all kernels in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernels(ra) -> dict:
-    """Kernel vs plain version at both pools, f32 and bf16. Returns the
-    bf16 max abs error of each pool."""
+def phase_kernels(ra, main_rois: dict) -> dict:
+    """Kernel vs plain version at both pools, f32 and bf16, on synthetic
+    rois and on the main path's own, at 256 channels (whole channel slices)
+    and on the synthetic rois at 40 (a partial slice, and in f32 a partial
+    one of 16-byte vectors). Returns the largest bf16 max abs error of each
+    pool."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
-    feats32 = pyramid(SC, 256, gen, torch.float32)
-    feats16 = [f.to(torch.bfloat16) for f in feats32]
+    pyramids = {c: pyramid(SC, c, gen, torch.float32) for c in (256, 40)}
     errs = {}
     for out_size, n in ((7, 1000), (14, 10)):
-        rois = rois_for(SC, n, rng)
-        got = ra.roi_align_cuda(feats32, rois, output_size=out_size)
-        want = ra.multiscale_roi_align_plain(feats32, rois, output_size=out_size)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        # f32: same sample coordinates bit for bit, sums in another order.
-        atol, rtol = 1e-5, 1e-5
-        ok = bool((err <= atol + rtol * want.abs()).all())
-        log(f"kernel pool{out_size} f32 [{SC},{n}]: max abs err {err.max().item():.3e}, "
-            f"max rel err {(err / want.abs().clamp(min=1e-3)).max().item():.3e} (tol atol {atol} + rtol {rtol})")
-        check(ok, f"pool{out_size} f32 kernel disagrees with the plain version")
+        syn = rois_for(SC, n, rng)
+        for c, roi_set, rois in ((256, "synthetic", syn), (256, "main-path", main_rois[out_size]), (40, "synthetic", syn)):
+            feats32 = pyramids[c]
+            feats16 = [f.to(torch.bfloat16) for f in feats32]
+            tag = f"pool{out_size} {roi_set} [{rois.shape[0]},{rois.shape[1]}] C={c}"
+            got = ra.roi_align_cuda(feats32, rois, output_size=out_size)
+            want = ra.multiscale_roi_align_plain(feats32, rois, output_size=out_size)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            # f32: same sample coordinates bit for bit, sums in another order.
+            atol, rtol = 1e-5, 1e-5
+            ok = bool((err <= atol + rtol * want.abs()).all())
+            log(f"kernel {tag} f32: max abs err {err.max().item():.3e}, "
+                f"max rel err {(err / want.abs().clamp(min=1e-3)).max().item():.3e} (tol atol {atol} + rtol {rtol})")
+            check(ok, f"{tag} f32 kernel disagrees with the plain version")
 
-        got = ra.roi_align_cuda(feats16, rois, output_size=out_size).float()
-        want = ra.multiscale_roi_align_plain([f.float() for f in feats16], rois, output_size=out_size)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        # bf16 in, f32 accumulation, one rounding of the output to bf16.
-        atol, rtol = 1e-5, 2.0**-8
-        ok = bool((err <= atol + rtol * want.abs()).all())
-        errs[out_size] = err.max().item()
-        log(f"kernel pool{out_size} bf16 [{SC},{n}]: max abs err {errs[out_size]:.3e}, "
-            f"max rel err {(err / want.abs().clamp(min=1e-3)).max().item():.3e} "
-            f"(tol atol {atol} + rtol 2^-8, vs the plain version in f32 on the same bf16 inputs)")
-        check(ok, f"pool{out_size} bf16 kernel disagrees with the plain version")
+            got = ra.roi_align_cuda(feats16, rois, output_size=out_size).float()
+            want = ra.multiscale_roi_align_plain([f.float() for f in feats16], rois, output_size=out_size)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            # bf16 in, f32 accumulation, one rounding of the output to bf16.
+            atol, rtol = 1e-5, 2.0**-8
+            ok = bool((err <= atol + rtol * want.abs()).all())
+            errs[out_size] = max(errs.get(out_size, 0.0), err.max().item())
+            log(f"kernel {tag} bf16: max abs err {err.max().item():.3e}, "
+                f"max rel err {(err / want.abs().clamp(min=1e-3)).max().item():.3e} "
+                f"(tol atol {atol} + rtol 2^-8, vs the plain version in f32 on the same bf16 inputs)")
+            check(ok, f"{tag} bf16 kernel disagrees with the plain version")
     return errs
 
 
-def phase_main(ra, pipeline_mod) -> dict:
+def main_path_rois(pipeline_mod, pipe, clip) -> dict:
+    """The rois of the first superchunk that `infer_sequence` pools: its
+    proposals (7x7 pool) and its detection boxes (14x14 pool)."""
+    kept = {}
+    pool = pipeline_mod.multiscale_roi_align
+
+    def keep(feats, rois, *args, output_size, **kw):
+        kept.setdefault(output_size, rois.detach().contiguous().clone())
+        return pool(feats, rois, *args, output_size=output_size, **kw)
+
+    pipeline_mod.multiscale_roi_align = keep
+    try:
+        pipe.infer_sequence(clip[:SC])
+    finally:
+        pipeline_mod.multiscale_roi_align = pool
+    return kept
+
+
+def phase_main(ra, pipeline_mod) -> tuple[dict, dict]:
     pipe, model = pipeline_mod.build_pipeline(
         slow=3, fast=3, original_hw=(480, 854), dtype=torch.bfloat16, device="cuda", superchunk=SC
     )
@@ -218,7 +270,9 @@ def phase_main(ra, pipeline_mod) -> dict:
     fps = 20 / statistics.median(runs)
     log(f"main: warm runs {', '.join(f'{r:.3f}' for r in runs)} s -> {fps:.2f} frames/s (median); "
         f"peak device memory {peak / 2**30:.2f} GiB")
-    return counts
+    rois = main_path_rois(pipeline_mod, pipe, clip)
+    log(f"main: kept one superchunk's rois: proposals {tuple(rois[7].shape)}, detections {tuple(rois[14].shape)}")
+    return counts, rois
 
 
 def phase_reference(pipeline_mod) -> None:
@@ -244,22 +298,35 @@ def phase_reference(pipeline_mod) -> None:
     check(box_err <= 0.05 and score_err <= 1e-4 and mask_diff <= 0.01, "card output differs from the CPU")
 
 
-def phase_timings(ra, errs: dict, counts: dict) -> list:
+def phase_timings(ra, errs: dict, counts: dict, main_rois: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(3)
     feats = pyramid(SC, 256, gen, torch.bfloat16)
     records = []
     for out_size, n in ((7, 1000), (14, 10)):
-        rois = rois_for(SC, n, rng)
-        kernel = lambda: ra.roi_align_cuda(feats, rois, output_size=out_size)  # noqa: E731
-        ms, wrapper_ms = device_ms(kernel), call_ms(kernel)
+        per_set = {}
+        for roi_set, rois in (("synthetic", rois_for(SC, n, rng)), ("main_path", main_rois[out_size])):
+            levels = ra.fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+            kernel = lambda: ra.roi_align_cuda(feats, rois, output_size=out_size)  # noqa: E731
+            kernel_only = lambda: ra.launch_kernel(feats, rois, levels, ra.ROI_SCALES, out_size)  # noqa: E731
+            ms, only_ms, wrapper_ms = device_ms(kernel), device_ms(kernel_only), call_ms(kernel)
+            bound_ms, bound_by = roi_align_bound(ra, feats, rois, out_size)
+            footprint = roi_align_footprint(ra, feats, rois, out_size)
+            per_set[roi_set] = {
+                "rois": list(rois.shape[:2]), "ms": ms, "kernel_only_ms": only_ms, "wrapper_call_ms": wrapper_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "footprint_bytes": footprint,
+                "footprint_tb_per_s": footprint / (only_ms * 1e-3) / 1e12,
+            }
+            log(f"time: pool{out_size} bf16 {roi_set} {list(rois.shape[:2])}: kernel {ms:.4f} ms device time "
+                f"with level assignment, {only_ms:.4f} ms without ({wrapper_ms:.4f} ms per wrapper call on the "
+                f"host clock); bound {bound_ms:.4f} ms ({bound_by}); footprint {footprint / 1e6:.1f} MB, "
+                f"{footprint / (only_ms * 1e-3) / 1e12:.3f} TB/s through L2")
+        rois = main_rois[out_size]
         # The plain version copies small host lists to the card (a stream
         # sync each), so it is timed on the host clock only.
         plain_ms = call_ms(lambda: ra.multiscale_roi_align_plain(feats, rois, output_size=out_size))
-        bound_ms, bound_by = roi_align_bound(ra, feats, rois, out_size)
-        log(f"time: pool{out_size} bf16 [{SC},{n}]: kernel {ms:.4f} ms device time (level assignment "
-            f"included; {wrapper_ms:.4f} ms per wrapper call on the host clock), plain {plain_ms:.4f} ms "
-            f"(host clock), bound {bound_ms:.4f} ms ({bound_by}), library call none")
+        log(f"time: pool{out_size} plain version, main-path rois: {plain_ms:.4f} ms (host clock); library call none")
+        syn = per_set["synthetic"]
         records.append({
             "name": f"roi_align_pool{out_size}",
             "route": "cuda",
@@ -267,12 +334,16 @@ def phase_timings(ra, errs: dict, counts: dict) -> list:
             "replaces": "slowfast_vos_tpu/ops/roi_align_pallas.py:105",
             "launches": counts[out_size],
             "max_abs_err": errs[out_size],
-            "ms": ms,
-            "wrapper_call_ms": wrapper_ms,
+            "ms": syn["ms"],
+            "kernel_only_ms": syn["kernel_only_ms"],
+            "wrapper_call_ms": syn["wrapper_call_ms"],
             "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "bound_ms": syn["bound_ms"],
+            "bound_by": syn["bound_by"],
+            "footprint_bytes": syn["footprint_bytes"],
+            "footprint_tb_per_s": syn["footprint_tb_per_s"],
             "library_ms": None,
+            "main_path_rois": per_set["main_path"],
         })
     return records
 
@@ -296,10 +367,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     phase_build(cuda_build)
-    errs = phase_kernels(ra)
-    counts = phase_main(ra, pipeline_mod)
+    counts, main_rois = phase_main(ra, pipeline_mod)
+    errs = phase_kernels(ra, main_rois)
     phase_reference(pipeline_mod)
-    records = phase_timings(ra, errs, counts)
+    records = phase_timings(ra, errs, counts, main_rois)
 
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(

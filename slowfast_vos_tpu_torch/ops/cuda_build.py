@@ -25,7 +25,7 @@ NVCC_FLAGS = [
 ]
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
@@ -50,7 +50,7 @@ def build(source: str) -> tuple[Path, float, str]:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

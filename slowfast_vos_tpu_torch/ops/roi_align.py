@@ -14,11 +14,17 @@ averaged, samples with y < -1 or y > H (x alike) weighing zero.
   batch, f32 or bf16 features, output 7 or 14) or raises. The kernel
   samples the level directly, so it is exact: the TPU kernel's patch and
   its edge clamp for rois beyond ~5:1 (`roi_align_pallas.py:53-56`) are
-  not reproduced. Its bound on an H100 is device memory (a gather with
-  ~32 FLOP per output element); one DAVIS frame's 7x7 pool writes 25.1 MB
-  and reads at most the 43.9 MB P2-P5 pyramid, 7.5-21 us at 3.35 TB/s.
-  Design: one thread block per (roi, output row), threads along channels,
-  f32 accumulation (see the source's head note).
+  not reproduced. It pools separably, out = Wy . F[taps_y, taps_x] . Wx^T
+  over each roi's distinct taps: a CTA per roi (pool7) or per (roi,
+  channel slice) (pool14) builds the distinct taps, each bin's run of at
+  most 4 of them and its f32 weights in shared memory once; a row pass
+  over (bin, column, 16-byte channel vector) items, all loads in flight
+  at once, writes f32 row sums to shared memory, and a column pass writes
+  each output vector once (see the source's head note). Its bound on an
+  H100 is bytes: device memory moves the output and the touched pyramid
+  once (one DAVIS frame's 7x7 pool writes 25.1 MB), and L2 moves each
+  roi's own footprint, the sum over rois of distinct taps x C x element
+  size.
 * On CPU tensors it runs `multiscale_roi_align_plain`, a transcription of
   the JAX gather form, which is also what the kernel is held against on
   the card.
@@ -53,9 +59,14 @@ def fpn_level_assignment(
 ) -> torch.Tensor:
     """FPN level index per roi (torchvision LevelMapper):
     k = floor(k0 + log2(sqrt(area)/224 + 1e-6)), clamped to
-    [min_level, min_level+num_levels-1], returned 0-based int32."""
-    area = ((rois[..., 2] - rois[..., 0]) * (rois[..., 3] - rois[..., 1])).clamp(min=0.0)
-    k = torch.floor(canonical_level + torch.log2(torch.sqrt(area) / canonical_scale + 1e-6))
+    [min_level, min_level+num_levels-1], returned 0-based int32. The scale
+    divides as a device tensor (see `sample_grid`): multiplying by its
+    reciprocal, as CUDA division by a Python number does, moves rois at a
+    level boundary to another level than the CPU's and JAX's."""
+    wh = rois[..., 2:] - rois[..., :2]
+    area = (wh[..., 0] * wh[..., 1]).clamp(min=0.0)
+    scale = torch.full((), canonical_scale, dtype=area.dtype, device=area.device)
+    k = torch.floor(canonical_level + torch.log2(torch.sqrt(area) / scale + 1e-6))
     k = k.clamp(min_level, min_level + num_levels - 1)
     return (k - min_level).to(torch.int32)
 
@@ -191,20 +202,27 @@ def _check_cuda_inputs(feats, rois, spatial_scales, output_size, sampling_ratio)
         raise ValueError("rois must be a contiguous float32 [T, N, 4] tensor")
     t = rois.shape[0]
     c = feats[0].shape[-1]
-    if c % 2:
-        raise ValueError(f"the kernel takes an even channel count, got {c}")
+    vec = 16 // feats[0].element_size()
+    if c % vec:
+        raise ValueError(f"the kernel loads 16-byte channel vectors: C must be a multiple of {vec} in {dtype}, got {c}")
     for f in feats:
         if f.device != rois.device or f.dtype != dtype:
             raise ValueError("all levels must share the rois' device and one dtype")
         if f.dim() != 4 or f.shape[0] != t or f.shape[-1] != c or not f.is_contiguous():
             raise ValueError(f"each level must be a contiguous NHWC [T={t}, H, W, C={c}] tensor, got {tuple(f.shape)}")
-        if f.data_ptr() % (2 * f.element_size()):
-            raise ValueError("level data must be aligned to a channel pair")
+        if f.data_ptr() % 16:
+            raise ValueError("level data must be 16-byte aligned")
+        if f.shape[1] * f.shape[2] * c > 2**31 - 1:
+            raise ValueError("the kernel indexes one frame's level with 32-bit offsets")
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("roi_align.cu")
+    return bind(cuda_build.load("roi_align.cu"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from `csrc/roi_align.cu`."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.sfvos_roi_align_forward
     fn.argtypes = [vp] * 4 + [ci] * 8 + [cf] * 4 + [vp, vp] + [ci] * 5 + [vp, vp]
@@ -225,13 +243,32 @@ def roi_align_cuda(
     """Launch the CUDA kernel once over all [T, N] rois. Raises on any input
     the kernel does not take and on any launch error."""
     _check_cuda_inputs(feats, rois, spatial_scales, output_size, sampling_ratio)
+    levels = fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+    return launch_kernel(feats, rois, levels, spatial_scales, output_size)
+
+
+def launch_kernel(
+    feats: Sequence[torch.Tensor],
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    spatial_scales: Sequence[float],
+    output_size: int,
+    lib: ctypes.CDLL | None = None,
+) -> torch.Tensor:
+    """The launch itself, on inputs `_check_cuda_inputs` accepted and
+    precomputed int32 levels [T*N] (`fpn_level_assignment`), through `lib`
+    (a `bind`-declared build of the kernel; default: this checkout's).
+    Raises unless `levels` is such a tensor, contiguous on the rois'
+    device."""
     t, n = rois.shape[:2]
+    if (levels.dtype != torch.int32 or levels.dim() != 1 or levels.numel() != t * n
+            or not levels.is_contiguous() or levels.device != rois.device):
+        raise ValueError(f"levels must be a contiguous int32 [T*N={t * n}] tensor on {rois.device}")
     c = feats[0].shape[-1]
     out = torch.empty((t, n, output_size, output_size, c), dtype=feats[0].dtype, device=rois.device)
     if t * n == 0:
         return out
-    levels = fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
-    lib = _library()
+    lib = lib or _library()
     hw = [d for f in feats for d in (f.shape[1], f.shape[2])]
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream().cuda_stream

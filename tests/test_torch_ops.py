@@ -2,13 +2,15 @@
 JAX package on the same seeded inputs: boxes, anchors, NMS and top-k
 (index-exact, on tie-heavy inputs), the multi-scale RoIAlign's plain version
 (against the JAX gather and the Pallas kernel in interpret mode) and the
-mask paste. The CUDA kernel's own check needs the card."""
+mask paste. The CUDA kernel's own checks, which need the card, are in
+`test_torch_cuda.py`."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_common import cuda_device, t  # noqa: F401 (fixture)
+from torch_port_common import t
+from torch_roi_cases import boundary_rois, edge_case_batch
 from slowfast_vos_tpu.models.anchors import fpn_anchors as jax_fpn_anchors
 from slowfast_vos_tpu.ops import boxes as jboxes
 from slowfast_vos_tpu.ops import nms as jnms
@@ -145,6 +147,11 @@ def test_level_assignment_matches_jax():
     np.testing.assert_array_equal(pra.fpn_level_assignment(t(rois)).numpy(), np.asarray(jax_levels(rois)))
 
 
+def test_level_assignment_at_level_boundaries_matches_jax():
+    rois = boundary_rois()
+    np.testing.assert_array_equal(pra.fpn_level_assignment(rois).numpy(), np.asarray(jax_levels(rois.numpy())))
+
+
 @pytest.mark.parametrize("out_size", [7, 14])
 def test_plain_roi_align_matches_jax_gather_and_pallas(out_size):
     """The plain version against the JAX gather form (exact semantics, f32
@@ -188,6 +195,73 @@ def test_plain_roi_align_bf16_keeps_dtype():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=5e-2)
 
 
+def _axis_tables(lo, hi, frac, valid, out_size):
+    """Test-side transcription of the kernel's tables of one axis of one roi
+    (`csrc/roi_align.cu`, step 1, a lane per sample): the largest valid tap
+    before each sample, which candidate taps are new, their ranks by count,
+    each bin's run of at most 4 distinct taps and its merged f32 weights.
+    Returns the distinct taps and a dense [out, taps] weight matrix."""
+    n = 2 * out_size
+    lo, hi = [int(v) for v in lo], [int(v) for v in hi]
+    before = [-1] + list(np.maximum.accumulate([hi[s] if valid[s] else -1 for s in range(n)]))[:-1]
+    new_lo = [bool(valid[s]) and lo[s] > before[s] for s in range(n)]
+    new_hi = [bool(valid[s]) and hi[s] > lo[s] and hi[s] > before[s] for s in range(n)]
+    rank_hi = [sum(new_lo[: s + 1]) + sum(new_hi[: s + 1]) - 1 for s in range(n)]
+    rank_lo = [rank_hi[s] - new_hi[s] - (before[s] > lo[s]) for s in range(n)]
+    taps = [0] * (sum(new_lo) + sum(new_hi))
+    for s in range(n):
+        if new_lo[s]:
+            taps[rank_lo[s]] = lo[s]
+        if new_hi[s]:
+            taps[rank_hi[s]] = hi[s]
+    assert taps == sorted({v for s in range(n) if valid[s] for v in (lo[s], hi[s])}) and len(taps) <= 4 * out_size
+    for s in range(n):
+        if valid[s]:
+            assert taps[rank_lo[s]] == lo[s] and taps[rank_hi[s]] == hi[s]
+    weights = np.zeros((out_size, len(taps)), np.float32)
+    for b in range(out_size):
+        samples = [s for s in (2 * b, 2 * b + 1) if valid[s]]
+        if not samples:
+            continue
+        start = rank_lo[samples[0]]
+        end = rank_hi[samples[-1]] + 1
+        assert end - start <= 4
+        for s in samples:
+            assert start <= rank_lo[s] <= rank_hi[s] < end
+            weights[b, rank_lo[s]] += np.float32(0.5) * (np.float32(1) - frac[s])
+            weights[b, rank_hi[s]] += np.float32(0.5) * frac[s]
+    return taps, weights
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_separable_tables_match_plain_roi_align(out_size):
+    """The kernel's algebra on the CPU in f32: distinct taps per axis,
+    per-bin runs, merged weights and Wy . F . Wx^T, against the plain
+    version at atol 1e-5 + rtol 1e-5 (only the sum order differs)."""
+    rng = np.random.default_rng(6)
+    frames = 2
+    feats, rois = edge_case_batch(rng, frames, c=8)
+    want = pra.multiscale_roi_align_plain([t(f) for f in feats], t(rois), output_size=out_size)
+    grid = pra.sample_grid([f.shape[1:3] for f in feats], t(rois), output_size=out_size)
+    levels = pra.fpn_level_assignment(t(rois).reshape(-1, 4)).numpy()
+    g = {k: v.numpy() for k, v in grid.items()}
+    got = np.empty(want.shape, np.float32).reshape(-1, out_size, out_size, 8)
+    most_taps = 0
+    for m in range(rois.shape[0] * rois.shape[1]):
+        ty, wy = _axis_tables(g["y0"][m], g["y1"][m], g["ly"][m], g["my"][m], out_size)
+        tx, wx = _axis_tables(g["x0"][m], g["x1"][m], g["lx"][m], g["mx"][m], out_size)
+        most_taps = max(most_taps, len(ty), len(tx))
+        f = feats[levels[m]][m // rois.shape[1]][np.ix_(ty, tx)] if ty and tx else np.zeros((len(ty), len(tx), 8))
+        got[m] = np.einsum("pi,ijc,qj->pqc", wy, f.astype(np.float32), wx)
+    # The edge cases are really there: a full table, merged clamped taps,
+    # invalid samples and empty bins.
+    assert most_taps == 4 * out_size
+    assert (g["my"] & (g["y0"] == g["y1"])).any() and (g["mx"] & (g["x0"] == g["x1"])).any()
+    assert not g["my"].all() and not g["mx"].all()
+    assert (~g["my"].reshape(-1, out_size, 2).any(-1)).any()
+    torch.testing.assert_close(t(got).reshape(want.shape), want, atol=1e-5, rtol=1e-5)
+
+
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     """Input checks run before any build or launch, so they are testable
     without the card."""
@@ -204,24 +278,19 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         pra._check_cuda_inputs(feats, rois.double(), SCALES, 7, 2)
     with pytest.raises(ValueError, match="4 FPN levels"):
         pra._check_cuda_inputs(feats[:3], rois, SCALES[:3], 7, 2)
+    # 16-byte channel vectors: C a multiple of 4 in f32, of 8 in bf16.
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pra._check_cuda_inputs([f[..., :6] .contiguous() for f in feats], rois, SCALES, 7, 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pra._check_cuda_inputs([f[..., :4].contiguous().bfloat16() for f in feats], rois, SCALES, 7, 2)
+    # Level data 16-byte aligned: a contiguous view 4 bytes into its storage.
+    shifted = [torch.empty(f.numel() + 1)[1:].view(f.shape).copy_(f) for f in feats]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pra._check_cuda_inputs(shifted, rois, SCALES, 7, 2)
     pra._check_cuda_inputs(feats, rois, SCALES, 14, 2)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version(cuda_device):
-    """On the card: the kernel against its plain version, f32 (TF32 off)
-    atol 1e-5 + rtol 1e-5, bf16 against the plain version in f32 on the
-    same bf16 inputs within one bf16 rounding (rtol 2^-8)."""
-    rng = np.random.default_rng(4)
-    feats = [t(f).to(cuda_device) for f in _pyramid(rng, 3, c=64)]
-    rois = t(np.stack([_rois(rng, 40) * 4 for _ in range(3)])).to(cuda_device)
-    for out_size in (7, 14):
-        before = pra.launches[out_size]
-        got = pra.multiscale_roi_align(feats, rois, output_size=out_size)
-        assert pra.launches[out_size] == before + 1
-        want = pra.multiscale_roi_align_plain(feats, rois, output_size=out_size)
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-        f16 = [f.bfloat16() for f in feats]
-        got = pra.multiscale_roi_align(f16, rois, output_size=out_size).float()
-        want = pra.multiscale_roi_align_plain([f.float() for f in f16], rois, output_size=out_size)
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=2.0**-8)
+    pra._check_cuda_inputs([f[..., :4].contiguous() for f in feats], rois, SCALES, 7, 2)
+    # Precomputed levels: int32, one per roi, contiguous, on the rois' device.
+    levels = pra.fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+    for bad in (levels.long(), levels[:-1], levels.reshape(2, -1), levels.repeat_interleave(2)[::2]):
+        with pytest.raises(ValueError, match="levels must be"):
+            pra.launch_kernel(feats, rois, bad, SCALES, 7)

@@ -115,7 +115,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def _port_sources():
     files = sorted((ROOT / "slowfast_vos_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_pipeline.py"]
+    scripts = [ROOT / "scripts" / n for n in ("torch_profile_pipeline.py", "torch_roi_align_compare.py")]
+    return files + [ROOT / "chip_smoke.py", *scripts, ROOT / "tests" / "torch_roi_cases.py", ROOT / "tests" / "test_torch_cuda.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

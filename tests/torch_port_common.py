@@ -11,6 +11,7 @@ from slowfast_vos_tpu.models.config import DetectionConfig, SlowFastConfig
 from slowfast_vos_tpu.models.segmentation import SlowFastMaskRCNN as JaxModel
 from slowfast_vos_tpu_torch.convert import state_dict_from_flax
 from slowfast_vos_tpu_torch.models.segmentation import SlowFastMaskRCNN as PortModel
+from torch_roi_cases import cuda_device  # noqa: F401 (fixture, re-exported)
 
 # The tier-1 run has 6 workers on 8 cores.
 torch.set_num_threads(2)
@@ -62,12 +63,3 @@ def rel_err(got, want) -> float:
     """max |got - want| / max |want|."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests marked `cuda`; skips where CUDA is absent. Decided
-    here, when the test runs, never while a module is imported."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
-    return torch.device("cuda")
