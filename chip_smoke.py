@@ -6,28 +6,43 @@
 Phases, each fatal on failure:
 
 1. build   - compile every hand-written kernel of `slowfast_vos_tpu_torch/csrc`
-             with nvcc (one process per source, all started together);
+             with nvcc (one process per source, all started together), with
+             each kernel's registers and spills;
 2. main    - `build_pipeline(3, 3, (480, 854), bf16)` with seeded random
              weights, `infer_sequence` over a 20-frame clip (first, carry and
              ragged-tail superchunks), launch counts read around that run,
              frames/s, peak device memory; one superchunk's real proposals
-             and detection boxes are kept for phases 3 and 5;
-3. kernels - hold each kernel against its plain PyTorch version at the main
+             and detection boxes are kept for phases 4 and 6;
+3. train   - `Trainer` on the same full-width model (default
+             DetectionConfig: 2000 proposals, 512 box and 128 mask rois per
+             frame), 8 steps on one seeded window of moving blobs from
+             `train_windows` (2 centre frames + halo), launch counts read
+             around those steps (forward and backward kernel at both pools
+             in every step), finite losses, trainable weights moved, frozen
+             ones and FrozenBatchNorm buffers bit-identical, SlowFast running
+             statistics moved, ms/step and peak device memory, then
+             `infer_sequence` on the trained model; the first step's sampled
+             rois are kept for phases 4 and 6;
+4. kernels - hold each kernel against its plain PyTorch version at the main
              path's shapes (DAVIS 480x854 -> 768x1344 canvas, superchunk 8:
              [8, 1000] proposals for the 7x7 pool, [8, 10] detections for the
              14x14 pool, 256 channels), in f32 (TF32 off) and bf16, on
              synthetic rois with the edge cases and on the main path's own
-             rois, and at 40 channels on the synthetic rois;
-4. reference - a small f32 input through the same entry point on the card
-             and on the CPU (the plain versions), compared;
-5. timings - each kernel on both roi sets, with and without the level
-             assignment, against its bound, its per-roi footprint and its
-             plain version.
+             rois, and at 40 channels on the synthetic rois; the backward
+             kernel likewise at the train path's shapes ([2, 512] and
+             [2, 128] rois), per pixel against the plain backward;
+5. reference - a small f32 input through the same entry point on the card
+             and on the CPU (the plain versions), compared; and one tiny f32
+             train step on both, same weights and draws;
+6. timings - each kernel on both roi sets, with and without the level
+             assignment, against its bound and its plain version (the
+             forward also against its per-roi footprint).
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, where CUDA is absent or any phase fails.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -42,7 +57,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 CANVAS = (768, 1344)  # 480x854 resized to 749x1333, padded to /64
+LEVEL_HWS = [(CANVAS[0] // s, CANVAS[1] // s) for s in (4, 8, 16, 32)]
 SC = 8
+TRAIN_STEPS = 8
+GRAD_SHARE = 1e-3  # tests/test_torch_train.py's gradient tolerance
 
 
 def log(msg: str) -> None:
@@ -298,6 +316,238 @@ def phase_reference(pipeline_mod) -> None:
     check(box_err <= 0.05 and score_err <= 1e-4 and mask_diff <= 0.01, "card output differs from the CPU")
 
 
+def training_window(data, hw, frames, max_gt, index):
+    """Window `index` of `train_windows` over a seeded moving-blobs sequence
+    (2 objects, masks and boxes per frame)."""
+    images, ids = data.draw_sequence(np.random.default_rng(7), frames, *hw, 2)
+    windows = list(data.train_windows(data.sequence_arrays(images, ids, max_gt), fast=3))
+    return windows[index], images
+
+
+def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict]:
+    """8 full-width train steps; returns (launch counts of those steps, the
+    first step's sampled rois by output size)."""
+    pipe, model = pipeline_mod.build_pipeline(
+        slow=3, fast=3, original_hw=(480, 854), dtype=torch.bfloat16, device="cuda", superchunk=SC
+    )
+    pipeline_mod.init_weights(model, seed=0)
+    trainer = train_mod.Trainer(pipe, seed=0)
+    batch, clip = training_window(data, (480, 854), 8, pipe.cfg.max_gt, index=1)
+    log(f"train: window of {batch['images'].shape[0]} frames 480x854, {int(batch['gt_valid'].sum())} gt boxes, "
+        f"feat_valid {batch['feat_valid'].tolist()}")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kept, pool = {}, train_mod.train_step.multiscale_roi_align
+
+    def keep(feats, rois, *args, output_size, **kw):
+        kept.setdefault(output_size, rois.detach().clone())
+        return pool(feats, rois, *args, output_size=output_size, **kw)
+
+    keys = (7, 14, ("backward", 7), ("backward", 14))
+    per_step, times = [], []
+    train_mod.train_step.multiscale_roi_align = keep
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ra.launches.clear()
+        for i in range(TRAIN_STEPS):
+            seen = {k: ra.launches[k] for k in keys}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: ra.launches[k] - seen[k] for k in keys})
+            values = {k: float(v) for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in values.values()), f"step {i}: non-finite loss {values}")
+            log(f"train: step {i} {times[-1]:.1f} ms " + " ".join(f"{k} {v:.4f}" for k, v in values.items()))
+        counts = {k: ra.launches[k] for k in keys}
+    finally:
+        train_mod.train_step.multiscale_roi_align = pool
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train: launches over {TRAIN_STEPS} steps: pool7 {counts[7]}, pool14 {counts[14]}, "
+        f"backward pool7 {counts['backward', 7]}, backward pool14 {counts['backward', 14]}")
+    for i, c in enumerate(per_step):
+        check(all(v >= 1 for v in c.values()), f"step {i} bypassed a kernel: {c}")
+    step_ms = statistics.median(times[1:])
+    log(f"train: {step_ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, synchronized), "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+
+    after = model.state_dict()
+    frozen = [k for k in after if k.startswith(("backbone.", "rpn."))]
+    check(all(torch.equal(after[k], before[k]) for k in frozen), "a frozen weight or FrozenBatchNorm buffer changed")
+    weights = [k for k in trainer.params if trainer.params[k].dim() > 1]
+    moved = [k for k in trainer.params if not torch.equal(after[k], before[k])]
+    check(set(weights) <= set(moved), f"trainable weights that did not move: {sorted(set(weights) - set(moved))}")
+    stats = [k for k in after if k.startswith("slow_fast.") and "running" in k]
+    check(all(not torch.equal(after[k], before[k]) for k in stats), "a SlowFast running statistic did not move")
+    log(f"train: {len(moved)} of {len(trainer.params)} trainable tensors moved (every weight), "
+        f"{len(frozen)} frozen tensors bit-identical, {len(stats)} SlowFast running statistics moved")
+
+    dets = pipe.infer_sequence(clip)
+    check(len(dets) == len(clip) and all(np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all() for d in dets),
+          "infer_sequence after training gave non-finite detections")
+    log(f"train: infer_sequence on the trained model, {len(dets)} frames, "
+        f"{sum(int(d['valid'].sum()) for d in dets)} valid detections")
+    log(f"train: kept the first step's rois: pool7 {tuple(kept[7].shape)}, pool14 {tuple(kept[14].shape)}")
+    return {"counts": counts, "step_ms": step_ms, "step_times_ms": times, "peak_gib": peak / 2**30}, kept
+
+
+def phase_backward_kernels(ra, train_rois: dict) -> dict:
+    """The backward kernel against the plain backward on the train path's
+    rois and on synthetic ones, f32 (TF32 off) and bf16, per pixel within
+    1e-6 + rtol * B, B the plain backward of |g| (the sum of the
+    contributions' magnitudes: the atomics add them in no fixed order).
+    Returns the largest bf16 max abs error of each pool."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+    errs = {}
+    for out_size, n in ((7, 512), (14, 128)):
+        for roi_set, rois in (("synthetic", rois_for(2, n, rng)), ("train-path", train_rois[out_size])):
+            g32 = torch.randn((*rois.shape[:2], out_size, out_size, 256), generator=gen, device="cuda")
+            for dtype, rtol, name in ((torch.float32, 1e-5, "f32"), (torch.bfloat16, 2.0**-8, "bf16")):
+                gd = g32.to(dtype)
+                got = ra.roi_align_backward_cuda(gd, rois, LEVEL_HWS, output_size=out_size)
+                want = ra.multiscale_roi_align_backward_plain(gd.float(), rois, LEVEL_HWS, output_size=out_size)
+                bound = ra.multiscale_roi_align_backward_plain(gd.float().abs(), rois, LEVEL_HWS, output_size=out_size)
+                torch.cuda.synchronize()
+                err = max(float((a.float() - b).abs().max()) for a, b in zip(got, want))
+                worst = max(float(((a.float() - b).abs() / (1e-6 + rtol * c)).max()) for a, b, c in zip(got, want, bound))
+                if dtype == torch.bfloat16:
+                    errs[out_size] = max(errs.get(out_size, 0.0), err)
+                log(f"kernel backward pool{out_size} {roi_set} {list(rois.shape[:2])} C=256 {name}: max abs err "
+                    f"{err:.3e}, largest share of the per-pixel tolerance {worst:.3f} (1e-6 + {rtol:.3g} B)")
+                check(worst <= 1.0, f"backward pool{out_size} {roi_set} {name} disagrees with the plain backward")
+    return errs
+
+
+@contextlib.contextmanager
+def relu_branches(masks: list, replay: bool):
+    """Record every ReLU's branch (input > 0) in call order, or replay
+    recorded branches (output = input * branch): a ReLU whose input lies
+    within the two devices' f32 drift of zero then takes the same side in
+    both runs, and the gradients are comparable."""
+    functional = torch.nn.functional
+    orig = functional.relu
+    it = iter(masks)
+
+    def relu(x, inplace=False):
+        if replay:
+            return x * next(it).to(x.device)
+        masks.append((x > 0).cpu())
+        return orig(x)
+
+    functional.relu = relu
+    try:
+        yield
+    finally:
+        functional.relu = orig
+    check(not replay or next(it, None) is None, "the replayed step called ReLU fewer times than the recorded one")
+
+
+def phase_train_reference(pipeline_mod, train_mod, data, cfg_mod) -> None:
+    """One tiny f32 train step (tests/test_torch_train.py's shape: 60x100,
+    min 64, max 128, 3-3, TINY_CFG) on the card (kernels) and on the CPU
+    (plain versions), same seeded weights and draws; the CPU step replays
+    the card step's ReLU branches. Losses to rel 1e-4, every trainable
+    gradient to max-abs 1e-3 x its max |grad| (conv biases before a
+    train-mode BatchNorm, whose gradient is zero, to 1e-5 of the SlowFast
+    gradients)."""
+    cfg = cfg_mod.DetectionConfig(
+        rpn_pre_nms_top_n_train=64, rpn_post_nms_top_n_train=32, rpn_pre_nms_top_n_test=64,
+        rpn_post_nms_top_n_test=32, box_batch_size_per_image=32, mask_train_rois=8, detections_per_img=5, max_gt=3,
+    )
+    batch, _ = training_window(data, (60, 100), 6, cfg.max_gt, index=0)
+    masks, out = [], {}
+    for run, device in enumerate(("cuda", "cpu")):
+        pipe, model = pipeline_mod.build_pipeline(
+            3, 3, (60, 100), min_size=64, max_size=128, cfg=cfg, dtype=torch.float32, device=device, superchunk=4
+        )
+        pipeline_mod.init_weights(model, seed=0)
+        trainer = train_mod.Trainer(pipe)
+        if run == 0:  # the samplers' draws, made once on the CPU
+            gen = torch.Generator().manual_seed(0)
+            a, b = trainer.num_anchors, cfg.rpn_post_nms_top_n_train + cfg.max_gt
+            draws = {k: torch.rand((2, m), generator=gen) for k, m in
+                     (("rpn_pos", a), ("rpn_neg", a), ("box_pos", b), ("box_neg", b))}
+        model.train()
+        with relu_branches(masks, replay=run == 1):
+            total, metrics = trainer.loss(batch, {k: v.to(device) for k, v in draws.items()})
+            total.backward()
+        model.eval()
+        out[run] = ({k: float(v) for k, v in metrics.items()}, {k: p.grad.cpu() for k, p in trainer.params.items()})
+    (gm, gg), (cm, cg) = out[0], out[1]
+    loss_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-12) for k in cm)
+    sf_scale = max(float(v.abs().max()) for k, v in cg.items() if k.startswith("slow_fast."))
+    share, zero_share = 0.0, 0.0
+    for k in cg:
+        diff = float((gg[k] - cg[k]).abs().max())
+        if k.startswith("slow_fast.") and "conv" in k and k.endswith(".bias"):
+            zero_share = max(zero_share, max(float(gg[k].abs().max()), float(cg[k].abs().max())) / (1e-5 * sf_scale))
+        else:
+            share = max(share, diff / (GRAD_SHARE * float(cg[k].abs().max())))
+    log(f"reference: tiny f32 train step card vs CPU: losses max rel err {loss_err:.3e} (tol 1e-4), "
+        f"gradients at {share:.3f} of their tolerance, zero-gradient biases at {zero_share:.3f}; "
+        f"{len(masks)} ReLU calls replayed; loss {gm['loss']:.6f} (card) {cm['loss']:.6f} (CPU)")
+    check(loss_err <= 1e-4 and share <= 1.0 and zero_share <= 1.0, "the card's train step differs from the CPU's")
+
+
+def backward_bound(ra, g, rois, out_size) -> tuple[float, str]:
+    """Least time for the backward on an H100: bytes (g read once, the
+    gradient pyramid written once in g's dtype, rois and levels once) over
+    the memory rate, against f32 operations (4 multiply-adds per valid
+    sample and channel, as the forward) over the f32 rate."""
+    c, elem = g.shape[-1], g.element_size()
+    t = rois.shape[0]
+    grid = ra.sample_grid(LEVEL_HWS, rois, ra.ROI_SCALES, out_size, 2)
+    valid = int((grid["my"][:, :, None] & grid["mx"][:, None, :]).sum())
+    m = rois.shape[0] * rois.shape[1]
+    nbytes = g.numel() * elem + t * sum(h * w for h, w in LEVEL_HWS) * c * elem + m * (16 + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 8 * valid * c / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def backward_timings(ra, errs: dict, counts: dict, train_rois: dict) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rng = np.random.default_rng(6)
+    records = []
+    for out_size, n in ((7, 512), (14, 128)):
+        per_set = {}
+        for roi_set, rois in (("synthetic", rois_for(2, n, rng)), ("train_path", train_rois[out_size])):
+            g = torch.randn((*rois.shape[:2], out_size, out_size, 256), generator=gen, device="cuda").to(torch.bfloat16)
+            levels = ra.fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+            kernel = lambda: ra.roi_align_backward_cuda(g, rois, LEVEL_HWS, output_size=out_size)  # noqa: E731
+            kernel_only = lambda: ra.roi_align_backward_cuda(g, rois, LEVEL_HWS, output_size=out_size, levels=levels)  # noqa: E731
+            ms, only_ms, wrapper_ms = device_ms(kernel), device_ms(kernel_only), call_ms(kernel)
+            bound_ms, bound_by = backward_bound(ra, g, rois, out_size)
+            per_set[roi_set] = {"rois": list(rois.shape[:2]), "ms": ms, "kernel_only_ms": only_ms,
+                                "wrapper_call_ms": wrapper_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"time: backward pool{out_size} bf16 {roi_set} {list(rois.shape[:2])}: {ms:.4f} ms device time with "
+                f"level assignment, {only_ms:.4f} ms without (f32 zeroing, atomics and bf16 cast included; "
+                f"{wrapper_ms:.4f} ms per wrapper call on the host clock); bound {bound_ms:.4f} ms ({bound_by})")
+        rois = train_rois[out_size]
+        g = torch.randn((*rois.shape[:2], out_size, out_size, 256), generator=gen, device="cuda").to(torch.bfloat16)
+        plain_ms = call_ms(lambda: ra.multiscale_roi_align_backward_plain(g, rois, LEVEL_HWS, output_size=out_size), runs=5)
+        log(f"time: backward pool{out_size} plain version, train-path rois: {plain_ms:.4f} ms (host clock); library call none")
+        syn = per_set["synthetic"]
+        records.append({
+            "name": f"roi_align_backward_pool{out_size}",
+            "route": "cuda",
+            "source": "slowfast_vos_tpu_torch/csrc/roi_align.cu",
+            "replaces": "slowfast_vos_tpu/ops/roi_align_mm.py:125",
+            "replaces_note": "the JAX custom VJP _msra_mmgrad_bwd, computed by XLA; there is no Pallas kernel for it",
+            "launches": counts["backward", out_size],
+            "max_abs_err": errs[out_size],
+            "ms": syn["ms"],
+            "kernel_only_ms": syn["kernel_only_ms"],
+            "wrapper_call_ms": syn["wrapper_call_ms"],
+            "plain_ms": plain_ms,
+            "bound_ms": syn["bound_ms"],
+            "bound_by": syn["bound_by"],
+            "library_ms": None,
+            "train_path_rois": per_set["train_path"],
+        })
+    return records
+
+
 def phase_timings(ra, errs: dict, counts: dict, main_rois: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(3)
@@ -353,6 +603,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
     import slowfast_vos_tpu_torch
+    from slowfast_vos_tpu_torch import data
+    from slowfast_vos_tpu_torch import train as train_mod
+    from slowfast_vos_tpu_torch.models import config as cfg_mod
     from slowfast_vos_tpu_torch.models import pipeline as pipeline_mod
     from slowfast_vos_tpu_torch.ops import cuda_build
     from slowfast_vos_tpu_torch.ops import roi_align as ra
@@ -368,10 +621,17 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     phase_build(cuda_build)
     counts, main_rois = phase_main(ra, pipeline_mod)
+    train, train_rois = phase_train(ra, pipeline_mod, train_mod, data)
     errs = phase_kernels(ra, main_rois)
+    bwd_errs = phase_backward_kernels(ra, train_rois)
     phase_reference(pipeline_mod)
+    phase_train_reference(pipeline_mod, train_mod, data, cfg_mod)
     records = phase_timings(ra, errs, counts, main_rois)
+    for r, out_size in zip(records, (7, 14)):
+        r["train_launches"] = train["counts"][out_size]
+    records += backward_timings(ra, bwd_errs, train["counts"], train_rois)
 
+    log(json.dumps({"train_step": {k: train[k] for k in ("step_ms", "step_times_ms", "peak_gib")}}))
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

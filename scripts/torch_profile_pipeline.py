@@ -89,8 +89,8 @@ def stage_times(pipe, clip, runs: int) -> dict:
     return {k: float(np.median([r[k] for r in per_run])) for k in per_run[0]}
 
 
-def device_profile(pipe, clip, top: int) -> dict:
-    """One `infer_sequence` under torch.profiler: busy share of the window
+def device_profile(run, top: int) -> dict:
+    """One call of `run` under torch.profiler: busy share of the window
     (union of kernel intervals over the host-clock window) and top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -98,7 +98,7 @@ def device_profile(pipe, clip, top: int) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.infer_sequence(clip)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -148,7 +148,7 @@ def main() -> int:
     stages = stage_times(pipe, clip, RUNS)
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"stage {k:24s} {v * 1e3:9.2f} ms  {v / stages['total']:6.1%}")
-    prof = device_profile(pipe, clip, TOP)
+    prof = device_profile(lambda: pipe.infer_sequence(clip), TOP)
     print(f"device busy {prof.get('busy_share')}")
     for k in prof.get("top_kernels", []):
         print(f"kernel {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")

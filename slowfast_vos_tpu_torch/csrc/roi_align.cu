@@ -1,4 +1,6 @@
-// Multi-scale RoIAlign forward for Hopper (sm_90a), torchvision aligned=False.
+// Multi-scale RoIAlign for Hopper (sm_90a), torchvision aligned=False: the
+// forward (K1, below) and its gradient with respect to the features (K5,
+// after it, see its own note).
 //
 // Replaces the Pallas TPU kernel `slowfast_vos_tpu/ops/roi_align_pallas.py::_kernel`
 // (entry `multiscale_roi_align_pallas`, and its whole-clip form
@@ -202,6 +204,82 @@ struct Axis {
   alignas(16) float wt[OUT][kMaxRun];     // weight of each run entry, 0 past len[b]
 };
 
+// Builds the tables of axis a (0: y, 1: x) of roi r, one warp, lane s
+// taking sample s; the forward and backward kernels share it, so both see
+// the same taps and weights. Valid samples' taps are nondecreasing (lo_s <=
+// hi_s <= lo_s + 1, both monotone in s), so a candidate tap is new exactly
+// where it exceeds the largest tap before it, and new taps come in
+// ascending order: a tap's index among the distinct taps is the count of
+// new ones up to its position, less one, less one more where a larger tap
+// came before it (only lo_s can follow a larger tap, hi_{s-1} = lo_s + 1).
+// `stride` is the element offset of one tap: w x C for rows, C for columns.
+template <int OUT>
+__device__ __forceinline__ void build_axis(Axis<OUT>& ax, int a, int lane, const float* __restrict__ rois, int r,
+                                           float scale, int extent_px, int stride) {
+  constexpr int kS = Axis<OUT>::kSamples;
+  static_assert(kS <= 32, "a lane per sample");
+  Tap t = {0, 0, 0.0f, 0.0f, false};
+  if (lane < kS) {
+    const float lo_corner = __fmul_rn(rois[4 * r + 1 - a], scale);   // y1 or x1
+    const float hi_corner = __fmul_rn(rois[4 * r + 3 - a], scale);   // y2 or x2
+    const float extent = fmaxf(__fsub_rn(hi_corner, lo_corner), 1.0f);
+    const float step = __fdiv_rn(__fdiv_rn(extent, static_cast<float>(OUT)),
+                                 static_cast<float>(kSamplingRatio));
+    t = make_tap(lo_corner, step, lane, extent_px);
+  }
+  constexpr unsigned kAll = 0xffffffffu;
+  int before = t.valid ? t.hi : -1;  // inclusive prefix max of valid hi taps
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int o = __shfl_up_sync(kAll, before, d);
+    if (lane >= d) before = max(before, o);
+  }
+  before = __shfl_up_sync(kAll, before, 1);  // exclusive: the largest tap before lo_s
+  if (lane == 0) before = -1;
+  const bool new_lo = t.valid && t.lo > before;
+  const bool new_hi = t.valid && t.hi > t.lo && t.hi > before;
+  const unsigned lo_bits = __ballot_sync(kAll, new_lo);
+  const unsigned hi_bits = __ballot_sync(kAll, new_hi);
+  const unsigned upto = kAll >> (31 - lane);  // lanes 0..lane
+  const int rank_hi = __popc(lo_bits & upto) + __popc(hi_bits & upto) - 1;
+  const int rank_lo = rank_hi - (new_hi ? 1 : 0) - (before > t.lo ? 1 : 0);
+  if (new_lo) ax.off[rank_lo] = t.lo * stride;
+  if (new_hi) ax.off[rank_hi] = t.hi * stride;
+  if (lane == 0) ax.count = __popc(lo_bits) + __popc(hi_bits);
+  __syncwarp();
+  // Runs: lane b takes bin b, whose samples are 2b and 2b + 1.
+  const int s0 = kSamplingRatio * lane;
+  const bool v0 = __shfl_sync(kAll, t.valid, s0 % 32);
+  const bool v1 = __shfl_sync(kAll, t.valid, (s0 + 1) % 32);
+  const int lo0 = __shfl_sync(kAll, rank_lo, s0 % 32);
+  const int hi0 = __shfl_sync(kAll, rank_hi, s0 % 32);
+  const int lo1 = __shfl_sync(kAll, rank_lo, (s0 + 1) % 32);
+  const int hi1 = __shfl_sync(kAll, rank_hi, (s0 + 1) % 32);
+  const float wlo0 = __shfl_sync(kAll, 0.5f * t.wlo, s0 % 32);
+  const float whi0 = __shfl_sync(kAll, 0.5f * t.whi, s0 % 32);
+  const float wlo1 = __shfl_sync(kAll, 0.5f * t.wlo, (s0 + 1) % 32);
+  const float whi1 = __shfl_sync(kAll, 0.5f * t.whi, (s0 + 1) % 32);
+  if (lane < OUT) {
+    float* wt = ax.wt[lane];
+#pragma unroll
+    for (int k = 0; k < kMaxRun; ++k) wt[k] = 0.0f;
+    const int start = v0 ? lo0 : v1 ? lo1 : 0;
+    const int len = v0 || v1 ? (v1 ? hi1 : hi0) + 1 - start : 0;
+    if (v0) {
+      wt[lo0 - start] += wlo0;
+      wt[hi0 - start] += whi0;
+    }
+    if (v1) {
+      wt[lo1 - start] += wlo1;
+      wt[hi1 - start] += whi1;
+    }
+    ax.start[lane] = start;
+    ax.len[lane] = len;
+#pragma unroll
+    for (int k = 0; k < kMaxRun; ++k) ax.run_off[lane][k] = ax.off[start + (k < len ? k : 0)];
+  }
+}
+
 template <typename T, int OUT>
 __global__ void __launch_bounds__(Tile<OUT>::kThreads)
     roi_align_kernel(Pyramid<T> pyr, const float* __restrict__ rois, const int* __restrict__ levels,
@@ -214,10 +292,9 @@ __global__ void __launch_bounds__(Tile<OUT>::kThreads)
   constexpr int kVec = Vec<T>::kWidth;
   constexpr int kSliceVecs = CS / kVec;  // 16-byte vectors in a full slice
   constexpr int kPlanes = kVec / 4;      // float4 planes of one f32 vector in G
-  constexpr int kS = Axis<OUT>::kSamples;
   constexpr int kCand = Axis<OUT>::kCand;
   static_assert(CS % kVec == 0, "a slice is whole 16-byte vectors");
-  static_assert(kS <= 32 && kThreads >= 64, "a warp per axis, a lane per sample");
+  static_assert(kThreads >= 64, "a warp per axis");
 
   __shared__ Axis<OUT> axes[2];  // 0: y, 1: x
   // G[ph][j][plane][v]: f32 row sums, float4 planes so that neighbouring
@@ -234,78 +311,10 @@ __global__ void __launch_bounds__(Tile<OUT>::kThreads)
   const T* level = pick(pyr.feat, lv) + static_cast<size_t>(frame) * h * w * channels;
   const int tid = threadIdx.x;
 
-  // 1. Geometry: warp a builds axis a (0: y, 1: x), lane s takes sample s.
-  // Valid samples' taps are nondecreasing (lo_s <= hi_s <= lo_s + 1, both
-  // monotone in s), so a candidate tap is new exactly where it exceeds the
-  // largest tap before it, and new taps come in ascending order: a tap's
-  // index among the distinct taps is the count of new ones up to its
-  // position, less one, less one more where a larger tap came before it
-  // (only lo_s can follow a larger tap, hi_{s-1} = lo_s + 1).
+  // 1. Geometry: warp a builds axis a.
   if (tid < 64) {
     const int a = tid / 32;
-    const int lane = tid % 32;
-    Axis<OUT>& ax = axes[a];
-    Tap t = {0, 0, 0.0f, 0.0f, false};
-    if (lane < kS) {
-      const float lo_corner = __fmul_rn(rois[4 * r + 1 - a], scale);   // y1 or x1
-      const float hi_corner = __fmul_rn(rois[4 * r + 3 - a], scale);   // y2 or x2
-      const float extent = fmaxf(__fsub_rn(hi_corner, lo_corner), 1.0f);
-      const float step = __fdiv_rn(__fdiv_rn(extent, static_cast<float>(OUT)),
-                                   static_cast<float>(kSamplingRatio));
-      t = make_tap(lo_corner, step, lane, a == 0 ? h : w);
-    }
-    constexpr unsigned kAll = 0xffffffffu;
-    int before = t.valid ? t.hi : -1;  // inclusive prefix max of valid hi taps
-#pragma unroll
-    for (int d = 1; d < 32; d *= 2) {
-      const int o = __shfl_up_sync(kAll, before, d);
-      if (lane >= d) before = max(before, o);
-    }
-    before = __shfl_up_sync(kAll, before, 1);  // exclusive: the largest tap before lo_s
-    if (lane == 0) before = -1;
-    const bool new_lo = t.valid && t.lo > before;
-    const bool new_hi = t.valid && t.hi > t.lo && t.hi > before;
-    const unsigned lo_bits = __ballot_sync(kAll, new_lo);
-    const unsigned hi_bits = __ballot_sync(kAll, new_hi);
-    const unsigned upto = kAll >> (31 - lane);  // lanes 0..lane
-    const int rank_hi = __popc(lo_bits & upto) + __popc(hi_bits & upto) - 1;
-    const int rank_lo = rank_hi - (new_hi ? 1 : 0) - (before > t.lo ? 1 : 0);
-    const int stride = a == 0 ? w * channels : channels;
-    if (new_lo) ax.off[rank_lo] = t.lo * stride;
-    if (new_hi) ax.off[rank_hi] = t.hi * stride;
-    if (lane == 0) ax.count = __popc(lo_bits) + __popc(hi_bits);
-    __syncwarp();
-    // Runs: lane b takes bin b, whose samples are 2b and 2b + 1.
-    const int s0 = kSamplingRatio * lane;
-    const bool v0 = __shfl_sync(kAll, t.valid, s0 % 32);
-    const bool v1 = __shfl_sync(kAll, t.valid, (s0 + 1) % 32);
-    const int lo0 = __shfl_sync(kAll, rank_lo, s0 % 32);
-    const int hi0 = __shfl_sync(kAll, rank_hi, s0 % 32);
-    const int lo1 = __shfl_sync(kAll, rank_lo, (s0 + 1) % 32);
-    const int hi1 = __shfl_sync(kAll, rank_hi, (s0 + 1) % 32);
-    const float wlo0 = __shfl_sync(kAll, 0.5f * t.wlo, s0 % 32);
-    const float whi0 = __shfl_sync(kAll, 0.5f * t.whi, s0 % 32);
-    const float wlo1 = __shfl_sync(kAll, 0.5f * t.wlo, (s0 + 1) % 32);
-    const float whi1 = __shfl_sync(kAll, 0.5f * t.whi, (s0 + 1) % 32);
-    if (lane < OUT) {
-      float* wt = ax.wt[lane];
-#pragma unroll
-      for (int k = 0; k < kMaxRun; ++k) wt[k] = 0.0f;
-      const int start = v0 ? lo0 : v1 ? lo1 : 0;
-      const int len = v0 || v1 ? (v1 ? hi1 : hi0) + 1 - start : 0;
-      if (v0) {
-        wt[lo0 - start] += wlo0;
-        wt[hi0 - start] += whi0;
-      }
-      if (v1) {
-        wt[lo1 - start] += wlo1;
-        wt[hi1 - start] += whi1;
-      }
-      ax.start[lane] = start;
-      ax.len[lane] = len;
-#pragma unroll
-      for (int k = 0; k < kMaxRun; ++k) ax.run_off[lane][k] = ax.off[start + (k < len ? k : 0)];
-    }
+    build_axis<OUT>(axes[a], a, tid % 32, rois, r, scale, a == 0 ? h : w, a == 0 ? w * channels : channels);
   }
   __syncthreads();
 
@@ -437,6 +446,177 @@ cudaError_t launch_any(int output_size, const void* const feats[4], const int hw
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Backward (K5): the gradient of the pool with respect to the features.
+//
+// Replaces the JAX package's custom VJP `slowfast_vos_tpu/ops/roi_align_mm.py
+// ::_msra_mmgrad_bwd`, which XLA computes as dense separable matmuls (no
+// Pallas kernel): per level, grad = sum over the level's rois of
+// A_y^T . g . A_x, with [rois, H_l, 7, C] temporaries. Here, per roi r of a
+// [T, N] batch on its level l, with the forward's tables (`build_axis`, the
+// same rounding and the level passed in):
+//
+//   grad_l[frame, y_i, x_j, c] += sum_{ph, pw} Wy[ph, i] Wx[pw, j] g[r, ph, pw, c]
+//
+// over the roi's distinct taps i (rows) and j (columns): the transpose of
+// the forward's map, so a sample outside [-1, H] adds nothing.
+//
+// Design, simple first: a CTA of 256 threads per roi (pool7, its channels
+// in 4 slices of 64) or per (roi, 64 channels in 4 slices of 16) (pool14).
+//   1. Geometry as in the forward, then the inverse runs: for each
+//      distinct tap, the first and last bin whose run holds it (runs are
+//      contiguous and monotone, so the bins of a tap are contiguous).
+//   2. Column pass, threads over (ph, j, c): H[ph, j, c] = sum over the
+//      bins pw of tap j of Wx[pw, j] g[r, ph, pw, c], in f32 to shared
+//      memory (OUT x 4*OUT x slice floats: 50,176 bytes at both pools).
+//   3. Row pass, threads over (i, j, c), c fastest: the sum over the bins
+//      ph of tap i of Wy[ph, i] H[ph, j, c], added with one atomicAdd into
+//      the f32 gradient (a warp adds to 32 consecutive floats).
+// The caller zeroes the f32 gradient; for bf16 features a second kernel
+// casts it to bf16 (one rounding, after every roi has added).
+//
+// Bound: bytes. The function reads g and writes the gradient pyramid once
+// (dense: zeros where no roi samples); the f32 buffer's zeroing, atomics
+// and read-back are what this design adds on top. Atomics from overlapping
+// rois meet in L2 and are summed there in no fixed order, so f32 results
+// vary from run to run by rounding.
+
+template <int OUT>
+struct BwdTile;
+
+template <>
+struct BwdTile<7> {
+  static constexpr int kSlice = 64, kPasses = 4, kThreads = 256;
+};
+
+template <>
+struct BwdTile<14> {
+  static constexpr int kSlice = 16, kPasses = 4, kThreads = 256;
+};
+
+struct GradPyramid {
+  float* grad[4];  // level l: [T, h[l], w[l], C] f32, zeroed by the caller
+  int h[4];
+  int w[4];
+  float scale[4];
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T, int OUT>
+__global__ void __launch_bounds__(BwdTile<OUT>::kThreads)
+    roi_align_backward_kernel(GradPyramid pyr, const T* __restrict__ g, const float* __restrict__ rois,
+                              const int* __restrict__ levels, int rois_per_frame, int channels, int ctas_per_roi) {
+  constexpr int CS = BwdTile<OUT>::kSlice;
+  constexpr int kPasses = BwdTile<OUT>::kPasses;
+  constexpr int kThreads = BwdTile<OUT>::kThreads;
+  constexpr int kCand = Axis<OUT>::kCand;
+  static_assert(kThreads >= 64, "a warp per axis");
+
+  __shared__ Axis<OUT> axes[2];  // 0: y, 1: x
+  __shared__ int first[2][kCand], last[2][kCand];  // bins whose runs hold each distinct tap
+  extern __shared__ float hsum[];                  // H[ph][j][c]
+
+  const int r = blockIdx.x / ctas_per_roi;
+  const int c_begin = (blockIdx.x % ctas_per_roi) * CS * kPasses;
+  const int lv = levels[r];
+  const int frame = r / rois_per_frame;
+  const int h = pick(pyr.h, lv);
+  const int w = pick(pyr.w, lv);
+  const float scale = pick(pyr.scale, lv);
+  float* level = pick(pyr.grad, lv) + static_cast<size_t>(frame) * h * w * channels;
+  const T* g_r = g + static_cast<size_t>(r) * OUT * OUT * channels;
+  const int tid = threadIdx.x;
+
+  // 1. Geometry, then the inverse runs.
+  if (tid < 64) {
+    const int a = tid / 32;
+    build_axis<OUT>(axes[a], a, tid % 32, rois, r, scale, a == 0 ? h : w, a == 0 ? w * channels : channels);
+  }
+  __syncthreads();
+  for (int k = tid; k < 2 * kCand; k += kThreads) {
+    const int a = k / kCand;
+    const int i = k % kCand;
+    const Axis<OUT>& ax = axes[a];
+    int lo = OUT, hi = -1;
+    if (i < ax.count) {
+      for (int b = 0; b < OUT; ++b) {
+        if (ax.start[b] <= i && i < ax.start[b] + ax.len[b]) {
+          lo = min(lo, b);
+          hi = b;
+        }
+      }
+    }
+    first[a][i] = lo;
+    last[a][i] = hi;
+  }
+  __syncthreads();
+
+  const Axis<OUT>& ay = axes[0];
+  const Axis<OUT>& ax = axes[1];
+  const int ny = ay.count;
+  const int nx = ax.count;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int c0 = c_begin + pass * CS;
+    if (c0 >= channels) break;
+    const int nc = min(CS, channels - c0);
+    // 2. Column pass: H[ph, j, c] = sum over the bins pw of tap j of Wx * g.
+    for (int item = tid; item < OUT * nx * CS; item += kThreads) {
+      const int c = item % CS;
+      const int row = item / CS;
+      const int ph = row / nx;
+      const int j = row - ph * nx;
+      if (c >= nc) continue;
+      float acc = 0.0f;
+      for (int pw = first[1][j]; pw <= last[1][j]; ++pw) {
+        acc = fmaf(ax.wt[pw][j - ax.start[pw]], to_float(g_r[(ph * OUT + pw) * channels + c0 + c]), acc);
+      }
+      hsum[(ph * kCand + j) * CS + c] = acc;
+    }
+    __syncthreads();
+    // 3. Row pass: grad[y_i, x_j, c] += sum over the bins ph of tap i of Wy * H.
+    for (int item = tid; item < ny * nx * CS; item += kThreads) {
+      const int c = item % CS;
+      const int row = item / CS;
+      const int i = row / nx;
+      const int j = row - i * nx;
+      if (c >= nc) continue;
+      float acc = 0.0f;
+      for (int ph = first[0][i]; ph <= last[0][i]; ++ph) {
+        acc = fmaf(ay.wt[ph][i - ay.start[ph]], hsum[(ph * kCand + j) * CS + c], acc);
+      }
+      atomicAdd(level + ay.off[i] + ax.off[j] + c0 + c, acc);
+    }
+    __syncthreads();  // H is rewritten by the next slice
+  }
+}
+
+__global__ void cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    dst[i] = __float2bfloat16_rn(src[i]);
+  }
+}
+
+template <typename T, int OUT>
+cudaError_t launch_backward(const GradPyramid& pyr, const void* g, const float* rois, const int* levels,
+                            int num_rois, int rois_per_frame, int channels, cudaStream_t stream) {
+  using Tl = BwdTile<OUT>;
+  constexpr size_t smem = static_cast<size_t>(OUT) * Axis<OUT>::kCand * Tl::kSlice * sizeof(float);
+  auto kernel = roi_align_backward_kernel<T, OUT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int kCtaChannels = Tl::kSlice * Tl::kPasses;
+  const int ctas_per_roi = (channels + kCtaChannels - 1) / kCtaChannels;
+  kernel<<<num_rois * ctas_per_roi, Tl::kThreads, smem, stream>>>(pyr, static_cast<const T*>(g), rois, levels,
+                                                                   rois_per_frame, channels, ctas_per_roi);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -471,6 +651,57 @@ int sfvos_roi_align_forward(const void* f0, const void* f1, const void* f2, cons
                                           out, st)
               : launch_any<float>(output_size, feats, hw, scales, r, lv, num_rois, rois_per_frame, channels, out, st);
   return static_cast<int>(err);
+}
+
+// Backward (K5). Launches on `stream` and returns cudaGetLastError() (0 =
+// ok). g: [num_rois, OUT, OUT, C] of the feature dtype; rois, levels as in
+// the forward; grad0..3: the f32 gradient of each level [T, h_l, w_l, C],
+// zeroed by the caller, which this adds into. For bf16 features (is_bf16)
+// out0..3 are bf16 levels of the same shapes that get the f32 gradient
+// rounded once; for f32 features they are unused.
+int sfvos_roi_align_backward(const void* g, const void* rois, const void* levels, void* grad0, void* grad1,
+                             void* grad2, void* grad3, void* out0, void* out1, void* out2, void* out3, int h0,
+                             int w0, int h1, int w1, int h2, int w2, int h3, int w3, float s0, float s1, float s2,
+                             float s3, int num_frames, int num_rois, int rois_per_frame, int channels,
+                             int output_size, int is_bf16, void* stream) {
+  GradPyramid pyr;
+  void* grads[4] = {grad0, grad1, grad2, grad3};
+  void* outs[4] = {out0, out1, out2, out3};
+  const int hw[8] = {h0, w0, h1, w1, h2, w2, h3, w3};
+  const float scales[4] = {s0, s1, s2, s3};
+  bool small = true;  // offsets within one frame's level are ints
+  for (int l = 0; l < 4; ++l) {
+    pyr.grad[l] = static_cast<float*>(grads[l]);
+    pyr.h[l] = hw[2 * l];
+    pyr.w[l] = hw[2 * l + 1];
+    pyr.scale[l] = scales[l];
+    small = small && static_cast<long long>(hw[2 * l]) * hw[2 * l + 1] * channels <= INT_MAX;
+    if (grads[l] == nullptr || (is_bf16 && outs[l] == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_rois <= 0 || rois_per_frame <= 0 || channels <= 0 || num_frames <= 0 || !small) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* r = static_cast<const float*>(rois);
+  const int* lv = static_cast<const int*>(levels);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (output_size == 7) {
+    err = is_bf16 ? launch_backward<__nv_bfloat16, 7>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st)
+                  : launch_backward<float, 7>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st);
+  } else if (output_size == 14) {
+    err = is_bf16 ? launch_backward<__nv_bfloat16, 14>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st)
+                  : launch_backward<float, 14>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st);
+  }
+  if (err != cudaSuccess || !is_bf16) return static_cast<int>(err);
+  for (int l = 0; l < 4; ++l) {
+    const size_t n = static_cast<size_t>(num_frames) * hw[2 * l] * hw[2 * l + 1] * channels;
+    const size_t want = (n + 255) / 256;
+    const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+    cast_to_bf16_kernel<<<blocks, 256, 0, st>>>(pyr.grad[l], static_cast<__nv_bfloat16*>(outs[l]), n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 const char* sfvos_cuda_error_string(int code) {

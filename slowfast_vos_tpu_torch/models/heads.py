@@ -1,11 +1,13 @@
-"""RoI heads, inference: box head, mask head and detection postprocess.
+"""RoI heads: box head, mask head, detection postprocess, and the training
+sample selection and losses.
 
 Port of `slowfast_vos_tpu/models/heads.py` with torchvision's module tree
 (`roi_heads.box_head.fc6`, `roi_heads.box_predictor.cls_score`,
 `roi_heads.mask_head.mask_fcn1`, `roi_heads.mask_predictor.conv5_mask`, ...).
 The box head flattens the pooled [N, 7, 7, C] in CHW order and the mask
 head keeps a native `ConvTranspose2d`, so torchvision weights need neither
-the fc6 reorder nor the deconv flip of the JAX converter.
+the fc6 reorder nor the deconv flip of the JAX converter. The training
+functions are batched over a leading frame dimension where JAX vmaps them.
 """
 from __future__ import annotations
 
@@ -15,8 +17,11 @@ from torch import nn
 
 from slowfast_vos_tpu_torch.models.config import DetectionConfig
 from slowfast_vos_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear, nchw, nhwc
-from slowfast_vos_tpu_torch.ops.boxes import clip_boxes, decode_boxes, remove_small_boxes_mask
-from slowfast_vos_tpu_torch.ops.nms import batched_nms_mask, top_k_after_nms
+from slowfast_vos_tpu_torch.models.matching import BELOW_LOW, match_to_gt, sample_balanced
+from slowfast_vos_tpu_torch.models.rpn import smooth_l1
+from slowfast_vos_tpu_torch.ops.boxes import box_iou, clip_boxes, decode_boxes, encode_boxes, remove_small_boxes_mask
+from slowfast_vos_tpu_torch.ops.nms import batched_nms_mask, sort_desc, top_k_after_nms
+from slowfast_vos_tpu_torch.ops.roi_align import interp_matrix_1d
 
 
 class BoxHead(nn.Module):
@@ -89,6 +94,129 @@ class RoIHeads(nn.Module):
         """[N, 14, 14, C] -> mask logits [N, 28, 28, K], f32."""
         x = nchw(pooled.to(self.dtype)).contiguous(memory_format=torch.channels_last)
         return nhwc(self.mask_predictor(self.mask_head(x))).float()
+
+
+def masks_to_sorted_indices(pos_mask: torch.Tensor, neg_mask: torch.Tensor, total: int):
+    """Static gather order (`heads.py:116-121`): positives first, then
+    negatives, then padding, the lower index first within each (a stable
+    descending sort of scores in {0, 1, 2}, as `lax.top_k` orders ties).
+    Returns (indices, is_positive, valid), each [..., total]."""
+    score = pos_mask.to(torch.int32) * 2 + neg_mask.to(torch.int32)
+    top, idx = sort_desc(score)
+    top, idx = top[..., :total], idx[..., :total]
+    return idx, top == 2, top > 0
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [..., n, *rest] gathered at idx [..., k] along the candidate axis."""
+    rest = x.shape[idx.dim():]
+    return torch.gather(x, idx.dim() - 1, idx.reshape(*idx.shape, *[1] * len(rest)).expand(*idx.shape, *rest))
+
+
+def select_training_samples(
+    proposals: torch.Tensor,
+    prop_valid: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    cfg: DetectionConfig,
+    u_pos: torch.Tensor,
+    u_neg: torch.Tensor,
+) -> dict[str, torch.Tensor]:
+    """torchvision `RoIHeads.select_training_samples` (`heads.py:124-169`):
+    gt boxes appended to the proposals, matched at fg = bg = 0.5 with no
+    low-quality matches, `box_batch_size_per_image` rois sampled at
+    `box_positive_fraction`, positives first.
+
+    proposals [..., P, 4], prop_valid [..., P], gt_boxes [..., G, 4],
+    gt_labels [..., G], gt_valid [..., G]; u_pos, u_neg [..., P + G]:
+    uniform draws of the sampler. Returns [..., B] tensors (B =
+    min(box_batch_size_per_image, P + G)): boxes, labels, reg_targets,
+    matched_gt (index into gt), is_pos, valid."""
+    props = torch.cat([proposals, gt_boxes], dim=-2)
+    pvalid = torch.cat([prop_valid, gt_valid], dim=-1)
+    iou = box_iou(props, gt_boxes)
+    iou = torch.where(pvalid[..., None], iou, torch.full_like(iou, -1.0))
+    matches = match_to_gt(
+        iou, gt_valid, high_threshold=cfg.box_fg_iou, low_threshold=cfg.box_bg_iou, allow_low_quality=False
+    )
+    positive = (matches >= 0) & pvalid
+    negative = (matches == BELOW_LOW) & pvalid
+    pos_mask, neg_mask = sample_balanced(
+        positive, negative, u_pos, u_neg,
+        batch_size=cfg.box_batch_size_per_image, positive_fraction=cfg.box_positive_fraction,
+    )
+    total = min(cfg.box_batch_size_per_image, props.shape[-2])
+    idx, is_pos, valid = masks_to_sorted_indices(pos_mask, neg_mask, total)
+
+    boxes = _take(props, idx)
+    matched = torch.gather(matches, -1, idx).clamp(min=0)
+    labels = torch.where(is_pos, torch.gather(gt_labels, -1, matched), torch.zeros_like(matched))
+    reg_targets = encode_boxes(_take(gt_boxes, matched), boxes, cfg.bbox_reg_weights)
+    return {
+        "boxes": boxes,
+        "labels": labels,
+        "reg_targets": reg_targets,
+        "matched_gt": matched,
+        "is_pos": is_pos,
+        "valid": valid,
+    }
+
+
+def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor, samples: dict):
+    """Cross-entropy over the sampled rois and smooth-l1 (beta 1/9) over the
+    positives, both over the number sampled (`heads.py:172-185`).
+
+    class_logits [..., B, K], box_regression [..., B, K, 4] -> per-frame
+    (cls_loss [...], box_loss [...])."""
+    labels = samples["labels"].long()
+    valid = samples["valid"]
+    num = valid.sum(-1).clamp(min=1)
+    zero = torch.zeros((), device=class_logits.device)
+    logp = torch.log_softmax(class_logits, dim=-1)
+    ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    cls_loss = torch.where(valid, ce, zero).sum(-1) / num
+    reg = torch.gather(box_regression, -2, labels[..., None, None].expand(*labels.shape, 1, 4))[..., 0, :]
+    bl = smooth_l1(reg - samples["reg_targets"], beta=1.0 / 9.0).sum(-1)
+    box_loss = torch.where(samples["is_pos"], bl, zero).sum(-1) / num
+    return cls_loss, box_loss
+
+
+def project_masks_on_boxes(mask_stack: torch.Tensor, gt_idx: torch.Tensor, boxes: torch.Tensor, out_size: int):
+    """Gt masks sampled at roi boxes into [..., R, out, out] targets
+    (`heads.py:188-222`): torchvision's roi_align(spatial_scale=1) with a
+    fixed sampling ratio of 2, as the dense separable product
+    A_y . mask[gt] . A_x^T of `interp_matrix_1d` matrices.
+
+    mask_stack [..., G, H, W] (0/1), gt_idx [..., R], boxes [..., R, 4]."""
+    h, w = mask_stack.shape[-2:]
+    lead = boxes.shape[:-2]
+    r = boxes.shape[-2]
+    b = boxes.reshape(-1, 4).to(torch.float32)
+    x1, y1, x2, y2 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
+    out_t = torch.tensor(float(out_size), device=boxes.device)
+    a_y = interp_matrix_1d(y1, (y2 - y1).clamp(min=1.0) / out_t, h, out_size, 2)  # [M, out, H]
+    a_x = interp_matrix_1d(x1, (x2 - x1).clamp(min=1.0) / out_t, w, out_size, 2)  # [M, out, W]
+    stack = mask_stack.reshape(-1, *mask_stack.shape[-3:]).to(torch.float32)  # [L, G, H, W]
+    gi = gt_idx.reshape(stack.shape[0], r)
+    frame = torch.arange(stack.shape[0], device=gi.device)[:, None]
+    msel = stack[frame, gi].reshape(-1, h, w)  # [M, H, W] plane select
+    out = torch.bmm(torch.bmm(a_y, msel), a_x.transpose(1, 2))
+    return out.reshape(*lead, r, out_size, out_size)
+
+
+def maskrcnn_loss(mask_logits: torch.Tensor, targets: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor):
+    """BCE-with-logits of the gt class's channel against the projected
+    targets, mean over the pixels of the valid positive rois
+    (`heads.py:225-237`). mask_logits [..., R, M, M, K], targets
+    [..., R, M, M], labels and valid [..., R] -> per-frame loss [...]."""
+    m = mask_logits.shape[-2]
+    idx = labels.long()[..., None, None, None].expand(*labels.shape, m, m, 1)
+    sel = torch.gather(mask_logits, -1, idx)[..., 0]
+    bce = sel.clamp(min=0) - sel * targets + torch.log1p(torch.exp(-sel.abs()))
+    per_roi = bce.mean(dim=(-2, -1))
+    num = valid.sum(-1).clamp(min=1)
+    return torch.where(valid, per_roi, torch.zeros((), device=per_roi.device)).sum(-1) / num
 
 
 def postprocess_detections(

@@ -1,11 +1,12 @@
 """SlowFastMaskRCNN: frozen Mask R-CNN backbone and RPN, SlowFast temporal
 fusion of the FPN levels, RoI heads.
 
-Port of `slowfast_vos_tpu/models/segmentation.py`, inference only. The
-module tree is the reference's (a torchvision `maskrcnn_resnet50_fpn` plus
-`slow_fast.*`), so `load_state_dict(strict=True)` takes a reference state
-dict as it is. Orchestration (proposal filtering, RoIAlign, postprocess,
-paste) lives in `pipeline.py`.
+Port of `slowfast_vos_tpu/models/segmentation.py`. The module tree is the
+reference's (a torchvision `maskrcnn_resnet50_fpn` plus `slow_fast.*`), so
+`load_state_dict(strict=True)` takes a reference state dict as it is.
+Orchestration lives in `pipeline.py` (inference) and `train/train_step.py`
+(training). Only the SlowFast module behaves differently in train mode
+(its BatchNorms); the frozen backbone's are buffers.
 """
 from __future__ import annotations
 
@@ -17,6 +18,11 @@ from slowfast_vos_tpu_torch.models.heads import RoIHeads
 from slowfast_vos_tpu_torch.models.resnet_fpn import ResNet50FPN
 from slowfast_vos_tpu_torch.models.rpn import RegionProposalNetwork
 from slowfast_vos_tpu_torch.models.slowfast import SlowFastTemporal
+
+# The top-level modules the default training updates (`segmentation.py:31`,
+# whose slow_fast, box_head and mask_head are this port's slow_fast and
+# roi_heads).
+TRAINABLE_TOPLEVEL = ("slow_fast", "roi_heads")
 
 
 class SlowFastMaskRCNN(nn.Module):
@@ -42,7 +48,9 @@ class SlowFastMaskRCNN(nn.Module):
 
     def enhance(self, feats, pre_padded: bool = False) -> list[torch.Tensor]:
         """SlowFast-enhance the 4 RoI levels with the shared module (the
-        stride-64 level feeds only the RPN)."""
+        stride-64 level feeds only the RPN). In train mode each level's call
+        updates the SlowFast running statistics in turn, as the four calls
+        of one flax `apply` do."""
         return [self.slow_fast(f, pre_padded=pre_padded) for f in feats[:4]]
 
     def box_predict(self, pooled):

@@ -1,4 +1,4 @@
-"""SlowFast temporal fusion over FPN features, eval mode, whole-clip form.
+"""SlowFast temporal fusion over FPN features, whole-clip form.
 
 Port of `slowfast_vos_tpu/models/slowfast.py` (`slowfast.py:180-367`) with
 the reference's module names (`slow_fast.fast_conv1`, `slow_fast.bn_f1`,
@@ -18,10 +18,13 @@ exactly the per-window computation:
 * after three stages both chains hold one output per frame.
 
 Each (kt, k, k) valid-time conv runs as kt 2-D convolutions summed over the
-taps, with the eval BatchNorm (eps 1e-5) folded into its weights in f32.
-The JAX module's merged stage-1 convolutions (s == f, and "variant G" for
-s != f, `slowfast.py:265-349`) are TPU rewrites and are not carried over:
-every pathway runs its own convolutions.
+taps. In eval mode the BatchNorm (eps 1e-5) is folded into the conv's
+weights in f32. In train mode (the module's own `self.training`) it is
+flax's `nn.BatchNorm(use_running_average=False, momentum=0.9, dtype=f32)`
+(`slowfast.py:194-231`, `batch_norm_train`): statistics over the whole clip,
+as in the JAX package. The JAX module's merged stage-1 convolutions (s == f,
+and "variant G" for s != f, `slowfast.py:265-349`) are TPU rewrites and are
+not carried over: every pathway runs its own convolutions.
 """
 from __future__ import annotations
 
@@ -50,23 +53,47 @@ def fuse_kernel_size(slow_in: int, slow_kernel: int, fast_in: int, fast_kernel: 
     return out_fast - out_slow + 1, out_slow, out_fast
 
 
+def temporal_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, padding) -> torch.Tensor:
+    """Valid-time conv3d on an NCHW clip [T, Cin, H, W] -> [T - kt + 1, Cout,
+    H, W] in x's dtype, as kt summed 2-D convs:
+    out[t] = sum_i conv2d(x[t + i], w[:, :, i]) + bias."""
+    w = weight.to(x.dtype)
+    kt = w.shape[2]
+    tout = x.shape[0] - kt + 1
+    acc = None
+    for i in range(kt):
+        o = F.conv2d(x[i : i + tout], w[:, :, i], padding=padding)
+        acc = o if acc is None else acc + o
+    return acc if bias is None else acc + bias.to(x.dtype)[:, None, None]
+
+
 def temporal_conv_bn(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torch.Tensor:
-    """Valid-time conv3d + eval BatchNorm on an NCHW clip [T, Cin, H, W]
-    -> [T - kt + 1, Cout, H, W], as kt summed 2-D convs:
-    out[t] = sum_i conv2d(x[t + i], w[:, :, i]) + bias, with the BN folded in
+    """`temporal_conv` + eval BatchNorm, the BN folded into the weights in
     f32 before the cast to the compute dtype."""
     s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
     shift = bn.bias - bn.running_mean * s
-    w = (conv.weight * s[:, None, None, None, None]).to(x.dtype)
+    w = conv.weight * s[:, None, None, None, None]
     b = shift if conv.bias is None else conv.bias * s + shift
-    kt = w.shape[2]
-    tout = x.shape[0] - kt + 1
-    pad = conv.padding[1:]
-    acc = None
-    for i in range(kt):
-        o = F.conv2d(x[i : i + tout], w[:, :, i], padding=pad)
-        acc = o if acc is None else acc + o
-    return acc + b.to(x.dtype)[:, None, None]
+    return temporal_conv(x, w, b, conv.padding[1:])
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d, momentum: float = 0.9) -> torch.Tensor:
+    """flax `nn.BatchNorm(use_running_average=False, momentum, epsilon=bn.eps,
+    dtype=f32)` on an NCHW clip [T, C, H, W]: statistics in f32 over T, H
+    and W, var = max(E[x^2] - E[x]^2, 0) (biased), the running statistics
+    updated in place as momentum * old + (1 - momentum) * batch with the
+    biased variance, and the output cast back to x's dtype.
+    `nn.BatchNorm3d`'s own training mode differs: it puts the unbiased
+    variance into the running update, with momentum in the other sense."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
 
 
 class SlowFastTemporal(nn.Module):
@@ -98,6 +125,11 @@ class SlowFastTemporal(nn.Module):
         self.fast_conv3, self.bn_f3 = conv(32, 32, kf3), nn.BatchNorm3d(32)
         self.slow_conv3, self.bn_s3 = conv(256, 224, ks3), nn.BatchNorm3d(224)
 
+    def conv_bn(self, x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torch.Tensor:
+        if not self.training:
+            return temporal_conv_bn(x, conv, bn)
+        return batch_norm_train(temporal_conv(x, conv.weight, conv.bias, conv.padding[1:]), bn)
+
     def forward(self, feats: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
         """feats: [T, H, W, C]. With `pre_padded=True` the input already
         carries the F-1 halo frames and the output has T-(F-1) frames."""
@@ -115,15 +147,15 @@ class SlowFastTemporal(nn.Module):
         fast_x = x
         slow_x = x[d : d + t + s - 1]
         relu = F.relu
-        slow_x = relu(temporal_conv_bn(slow_x, self.slow_conv1, self.bn_s1))
-        fast_x = relu(temporal_conv_bn(fast_x, self.fast_conv1, self.bn_f1))
-        slow_x = torch.cat([slow_x, relu(temporal_conv_bn(fast_x, self.conv_f2s1, self.bn_f2s1))], dim=1)
+        slow_x = relu(self.conv_bn(slow_x, self.slow_conv1, self.bn_s1))
+        fast_x = relu(self.conv_bn(fast_x, self.fast_conv1, self.bn_f1))
+        slow_x = torch.cat([slow_x, relu(self.conv_bn(fast_x, self.conv_f2s1, self.bn_f2s1))], dim=1)
 
-        slow_x = relu(temporal_conv_bn(slow_x, self.slow_conv2, self.bn_s2))
-        fast_x = relu(temporal_conv_bn(fast_x, self.fast_conv2, self.bn_f2))
-        slow_x = torch.cat([slow_x, relu(temporal_conv_bn(fast_x, self.conv_f2s2, self.bn_f2s2))], dim=1)
+        slow_x = relu(self.conv_bn(slow_x, self.slow_conv2, self.bn_s2))
+        fast_x = relu(self.conv_bn(fast_x, self.fast_conv2, self.bn_f2))
+        slow_x = torch.cat([slow_x, relu(self.conv_bn(fast_x, self.conv_f2s2, self.bn_f2s2))], dim=1)
 
         # Stage 3: no relu (reference model.py:143-148).
-        slow_x = temporal_conv_bn(slow_x, self.slow_conv3, self.bn_s3)
-        fast_x = temporal_conv_bn(fast_x, self.fast_conv3, self.bn_f3)
+        slow_x = self.conv_bn(slow_x, self.slow_conv3, self.bn_s3)
+        fast_x = self.conv_bn(fast_x, self.fast_conv3, self.bn_f3)
         return nhwc(torch.cat([slow_x, fast_x], dim=1))

@@ -80,6 +80,28 @@ class ImageTransform:
         h, w = self.original_hw
         return rh / h, rw / w
 
+    def transform_boxes(self, boxes: torch.Tensor) -> torch.Tensor:
+        """Original-resolution XYXY -> canvas resolution (`transform.py:158-161`)."""
+        ry, rx = self._box_ratios
+        return boxes * torch.tensor([rx, ry, rx, ry], dtype=boxes.dtype, device=boxes.device)
+
+    def masks_to_canvas(self, masks: torch.Tensor) -> torch.Tensor:
+        """Binary gt masks [..., H, W] at the original resolution -> float32
+        0/1 masks [..., Hc, Wc] on the canvas: bilinear resize to the resized
+        extent, threshold at >= 0.5, zero padding bottom and right (the
+        train step's resize, `train_step.py:285-295`).
+
+        `jax.image.resize` antialiases when it shrinks an image and
+        `F.interpolate(antialias=False)` does not; both enlarge alike. DAVIS
+        480p and the test shapes enlarge, so the two agree there."""
+        h, w = masks.shape[-2:]
+        rh, rw = self.resized_hw
+        ch, cw = self.canvas_hw
+        x = masks.reshape(-1, 1, h, w).to(torch.float32)
+        x = F.interpolate(x, size=(rh, rw), mode="bilinear", align_corners=False, antialias=False)
+        x = F.pad((x >= 0.5).to(torch.float32), (0, cw - rw, 0, ch - rh))
+        return x.reshape(*masks.shape[:-2], ch, cw)
+
     def inverse_boxes(self, boxes: torch.Tensor) -> torch.Tensor:
         """Canvas resolution -> original resolution (postprocess step)."""
         ry, rx = self._box_ratios

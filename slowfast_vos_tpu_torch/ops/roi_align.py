@@ -29,6 +29,21 @@ averaged, samples with y < -1 or y > H (x alike) weighing zero.
   the JAX gather form, which is also what the kernel is held against on
   the card.
 
+The pool is differentiable with respect to the features (`_Pool`, a
+`torch.autograd.Function`; the rois get no gradient, as in JAX). Its
+backward is the transpose of the same linear map:
+
+* on CUDA tensors `roi_align_backward_cuda` launches the second kernel of
+  `csrc/roi_align.cu` (K5; it replaces the JAX package's custom VJP
+  `roi_align_mm.py::_msra_mmgrad_bwd`, which XLA computes, there is no
+  Pallas kernel for it): per roi, the forward's own tap tables, f32 atomic
+  adds into a zeroed f32 gradient, one rounding to bf16 at the end for
+  bf16 features. Bound by bytes: g read once, the gradient pyramid written
+  once.
+* on CPU tensors `multiscale_roi_align_backward_plain`, a transcription of
+  `_msra_mmgrad_bwd`: per level and frame, A_y^T . g . A_x over the rois
+  assigned there, as dense matmuls.
+
 FPN levels are assigned in PyTorch (`fpn_level_assignment`) for both
 paths, so kernel and plain version pool every roi at the same level.
 """
@@ -45,8 +60,9 @@ from slowfast_vos_tpu_torch.ops import cuda_build
 
 ROI_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 
-# Kernel launches by output size; `chip_smoke.py` reads them to show that
-# the main path went through the kernel.
+# Kernel launches: the forward's by output size (7, 14), the backward's by
+# ("backward", output size); `chip_smoke.py` reads them to show that the
+# main path went through the kernels.
 launches: collections.Counter = collections.Counter()
 
 
@@ -190,6 +206,75 @@ def multiscale_roi_align_plain(
     return out.reshape(t, n, output_size, output_size, c)
 
 
+def interp_matrix_1d(starts: torch.Tensor, bins: torch.Tensor, extent: int, out_size: int, sr: int) -> torch.Tensor:
+    """[N, out_size, extent] f32 matrix averaging the sr bilinear taps of each
+    bin along one axis (`roi_align_mm.py::_interp_matrix_1d`): sample k of a
+    roi sits at starts + (k + 1/2) * bins / sr, samples outside
+    [-1, extent] weigh zero, others clamp to [0, extent - 1].
+
+    starts: [N] roi start coordinate; bins: [N] bin size, both f32. The
+    sample step divides by a device tensor (see `sample_grid`), so the
+    samples sit where the gather form and the kernels put them."""
+    dev = starts.device
+    n = starts.shape[0]
+    s = out_size * sr
+    steps = torch.arange(s, dtype=torch.float32, device=dev) + 0.5
+    coords = starts[:, None] + steps[None, :] * (bins / torch.tensor(float(sr), device=dev))[:, None]  # [N, S]
+    in_range = (coords >= -1.0) & (coords <= extent)
+    c = coords.clamp(0.0, extent - 1.0)
+    c0 = torch.floor(c)
+    frac = c - c0
+    k = torch.arange(extent, dtype=torch.float32, device=dev)
+    is0 = k[None, None, :] == c0[:, :, None]
+    is1 = k[None, None, :] == torch.minimum(c0 + 1, torch.full_like(c0, extent - 1.0))[:, :, None]
+    a = is0 * (1.0 - frac)[:, :, None] + is1 * frac[:, :, None]
+    a = a * in_range[:, :, None]
+    return a.reshape(n, out_size, sr, extent).mean(dim=2)
+
+
+def multiscale_roi_align_backward_plain(
+    g: torch.Tensor,
+    rois: torch.Tensor,
+    level_hws: Sequence[tuple[int, int]],
+    spatial_scales: Sequence[float] = ROI_SCALES,
+    *,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> list[torch.Tensor]:
+    """Gradient of `multiscale_roi_align` with respect to the levels: a
+    transcription of `roi_align_mm.py::_msra_mmgrad_bwd`. Per level l and
+    frame, grad_l = sum over the frame's rois on l of A_y^T . g . A_x
+    (`interp_matrix_1d`), as two dense matmuls, in f32.
+
+    g: [T, N, out, out, C]; rois: [T, N, 4] -> levels [T, H_l, W_l, C] in
+    g's dtype. Rois are taken in chunks, so the [rois, H_l, out, C]
+    temporary stays bounded."""
+    t, n = rois.shape[:2]
+    c = g.shape[-1]
+    dev = rois.device
+    boxes = rois.reshape(-1, 4).to(torch.float32)
+    levels = fpn_level_assignment(boxes, num_levels=len(level_hws))
+    frame = torch.arange(t, device=dev).repeat_interleave(n)
+    gf = g.reshape(t * n, output_size, output_size, c).to(torch.float32)
+    out_t = torch.tensor(float(output_size), device=dev)
+    grads = []
+    for li, ((h, w), scale) in enumerate(zip(level_hws, spatial_scales)):
+        grad = torch.zeros((t, h, w, c), dtype=torch.float32, device=dev)
+        chunk = max(1, (1 << 25) // (h * output_size * c))
+        for f in range(t):
+            idx = torch.nonzero((levels == li) & (frame == f))[:, 0]
+            for i in range(0, idx.numel(), chunk):
+                sel = idx[i : i + chunk]
+                b = boxes[sel] * scale
+                x1, y1, x2, y2 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
+                a_y = interp_matrix_1d(y1, (y2 - y1).clamp(min=1.0) / out_t, h, output_size, sampling_ratio)
+                a_x = interp_matrix_1d(x1, (x2 - x1).clamp(min=1.0) / out_t, w, output_size, sampling_ratio)
+                u = torch.einsum("nph,npqc->nhqc", a_y, gf[sel])
+                grad[f] += torch.einsum("nhqc,nqw->hwc", u, a_x)
+        grads.append(grad.to(g.dtype))
+    return grads
+
+
 def _check_cuda_inputs(feats, rois, spatial_scales, output_size, sampling_ratio):
     if len(feats) != 4 or len(spatial_scales) != 4:
         raise ValueError("the kernel pools exactly 4 FPN levels")
@@ -227,6 +312,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.sfvos_roi_align_forward
     fn.argtypes = [vp] * 4 + [ci] * 8 + [cf] * 4 + [vp, vp] + [ci] * 5 + [vp, vp]
     fn.restype = ci
+    if hasattr(lib, "sfvos_roi_align_backward"):  # older builds have the forward only
+        bwd = lib.sfvos_roi_align_backward
+        bwd.argtypes = [vp] * 11 + [ci] * 8 + [cf] * 4 + [ci] * 6 + [vp]
+        bwd.restype = ci
     lib.sfvos_cuda_error_string.argtypes = [ci]
     lib.sfvos_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -283,6 +372,92 @@ def launch_kernel(
     return out
 
 
+def roi_align_backward_cuda(
+    g: torch.Tensor,
+    rois: torch.Tensor,
+    level_hws: Sequence[tuple[int, int]],
+    spatial_scales: Sequence[float] = ROI_SCALES,
+    *,
+    output_size: int = 7,
+    levels: torch.Tensor | None = None,
+) -> list[torch.Tensor]:
+    """Launch the backward kernel (K5) once over all [T, N] rois: g
+    [T, N, out, out, C] (f32 or bf16, the features' dtype) -> the gradient
+    of each level [T, H_l, W_l, C] in g's dtype. `levels`: precomputed
+    int32 [T*N] levels (default: `fpn_level_assignment`, as the forward
+    assigns them). Raises on any input the kernel does not take and on any
+    launch error."""
+    t, n = rois.shape[:2]
+    if output_size not in (7, 14):
+        raise ValueError(f"the backward kernel takes output_size 7 or 14, got {output_size}")
+    if len(level_hws) != 4 or len(spatial_scales) != 4:
+        raise ValueError("the backward kernel takes exactly 4 FPN levels")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the backward kernel takes float32 or bfloat16 gradients, got {g.dtype}")
+    if rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[-1] != 4 or not rois.is_contiguous():
+        raise ValueError("rois must be a contiguous float32 [T, N, 4] tensor")
+    if g.dim() != 5 or tuple(g.shape[:4]) != (t, n, output_size, output_size) or not g.is_contiguous():
+        raise ValueError(f"g must be a contiguous [T={t}, N={n}, {output_size}, {output_size}, C] tensor, got {tuple(g.shape)}")
+    if g.device != rois.device:
+        raise ValueError("g and rois must share one device")
+    if levels is None:
+        levels = fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+    if (levels.dtype != torch.int32 or levels.dim() != 1 or levels.numel() != t * n
+            or not levels.is_contiguous() or levels.device != rois.device):
+        raise ValueError(f"levels must be a contiguous int32 [T*N={t * n}] tensor on {rois.device}")
+    c = g.shape[-1]
+    for h, w in level_hws:
+        if h * w * c > 2**31 - 1:
+            raise ValueError("the kernel indexes one frame's level with 32-bit offsets")
+    grads = [torch.zeros((t, h, w, c), dtype=torch.float32, device=rois.device) for h, w in level_hws]
+    bf16 = g.dtype == torch.bfloat16
+    outs = [torch.empty((t, h, w, c), dtype=torch.bfloat16, device=rois.device) for h, w in level_hws] if bf16 else None
+    if t * n == 0:
+        return [o.zero_() for o in outs] if bf16 else grads
+    lib = _library()
+    hw = [d for h, w in level_hws for d in (h, w)]
+    with torch.cuda.device(rois.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sfvos_roi_align_backward(
+            g.data_ptr(), rois.data_ptr(), levels.data_ptr(), *[x.data_ptr() for x in grads],
+            *([x.data_ptr() for x in outs] if bf16 else [None] * 4), *hw, *[float(s) for s in spatial_scales],
+            t, t * n, n, c, output_size, int(bf16), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"roi_align backward kernel launch failed: {lib.sfvos_cuda_error_string(rc).decode()}")
+    launches["backward", output_size] += 1
+    return outs if bf16 else grads
+
+
+class _Pool(torch.autograd.Function):
+    """The pool, differentiable with respect to the levels. Forward: the
+    kernel on CUDA, the plain gather on the CPU; backward: K5 on CUDA, the
+    plain transpose on the CPU. The rois get no gradient, as in JAX
+    (`roi_align_mm.py:156`; the train step detaches them besides)."""
+
+    @staticmethod
+    def forward(ctx, rois, spatial_scales, output_size, sampling_ratio, *feats):
+        pool = roi_align_cuda if rois.device.type == "cuda" else multiscale_roi_align_plain
+        out = pool(feats, rois, spatial_scales, output_size=output_size, sampling_ratio=sampling_ratio)
+        ctx.save_for_backward(rois)
+        ctx.geometry = ([tuple(f.shape[1:3]) for f in feats], tuple(spatial_scales), output_size, sampling_ratio)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (rois,) = ctx.saved_tensors
+        hws, scales, output_size, sampling_ratio = ctx.geometry
+        g = g.contiguous()
+        if rois.device.type == "cuda":
+            grads = roi_align_backward_cuda(g, rois, hws, scales, output_size=output_size)
+        else:
+            grads = multiscale_roi_align_backward_plain(
+                g, rois, hws, scales, output_size=output_size, sampling_ratio=sampling_ratio
+            )
+        return (None, None, None, None, *grads)
+
+
 def multiscale_roi_align(
     feats: Sequence[torch.Tensor],
     rois: torch.Tensor,
@@ -292,10 +467,9 @@ def multiscale_roi_align(
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
     """Multi-scale RoIAlign of rois [T, N, 4] over levels [T, H_l, W_l, C]
-    -> [T, N, out, out, C]. CUDA tensors go through the kernel, CPU tensors
-    through the plain version; there is no fallback between the two."""
-    if rois.device.type == "cuda":
-        return roi_align_cuda(feats, rois, spatial_scales, output_size=output_size, sampling_ratio=sampling_ratio)
-    if rois.device.type == "cpu":
-        return multiscale_roi_align_plain(feats, rois, spatial_scales, output_size=output_size, sampling_ratio=sampling_ratio)
-    raise ValueError(f"no RoIAlign for device {rois.device}")
+    -> [T, N, out, out, C], differentiable with respect to the levels. CUDA
+    tensors go through the kernels, CPU tensors through the plain versions;
+    there is no fallback between the two."""
+    if rois.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no RoIAlign for device {rois.device}")
+    return _Pool.apply(rois, tuple(spatial_scales), output_size, sampling_ratio, *feats)

@@ -1,5 +1,6 @@
-"""The PyTorch port's checks that need the card: the RoIAlign kernel against
-its plain version, and the level assignment on the card against the CPU's.
+"""The PyTorch port's checks that need the card: the RoIAlign kernel and
+its backward against their plain versions, and the level assignment on the
+card against the CPU's.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -36,6 +37,35 @@ def test_cuda_kernel_matches_plain_version(cuda_device, c):
         got = pra.multiscale_roi_align(f16, rois, output_size=out_size).float()
         want = pra.multiscale_roi_align_plain([f.float() for f in f16], rois, output_size=out_size)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=2.0**-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [40, 256])
+def test_cuda_backward_kernel_matches_plain_version(cuda_device, c):
+    """On the card, on the edge-case rois: the backward kernel (K5) through
+    the autograd pool against the plain backward, per pixel within
+    1e-6 + 1e-5 B in f32 (TF32 off) and 1e-6 + 2^-8 B in bf16, where B is
+    the plain backward of |g| (the sum of the contributions' magnitudes:
+    the kernel's atomics add them in no fixed order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    feats, rois = edge_case_batch(rng, 2, c=c)
+    rois = torch.from_numpy(rois).to(cuda_device)
+    hws = [f.shape[1:3] for f in feats]
+    for out_size in (7, 14):
+        g = torch.from_numpy(rng.normal(size=(*rois.shape[:2], out_size, out_size, c)).astype(np.float32)).to(cuda_device)
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-8)):
+            levels = [torch.from_numpy(f).to(cuda_device, dtype).requires_grad_(True) for f in feats]
+            gd = g.to(dtype)
+            before = pra.launches["backward", out_size]
+            pooled = pra.multiscale_roi_align(levels, rois, output_size=out_size)
+            got = torch.autograd.grad(pooled, levels, gd)
+            assert pra.launches["backward", out_size] == before + 1
+            want = pra.multiscale_roi_align_backward_plain(gd.float(), rois, hws, output_size=out_size)
+            bound = pra.multiscale_roi_align_backward_plain(gd.float().abs(), rois, hws, output_size=out_size)
+            for gl, wl, bl in zip(got, want, bound):
+                assert gl.dtype == dtype and gl.shape == wl.shape
+                assert bool(((gl.float() - wl).abs() <= 1e-6 + rtol * bl).all()), (out_size, dtype)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 with the JAX package at f32, on the same seeded inputs and weights (JAX
 variables with every leaf redrawn, carried over by `state_dict_from_flax`):
 transform, FrozenBatchNorm, ResNet-50 + FPN, RPN head and proposal filtering,
-SlowFast temporal fusion, box and mask heads, detection postprocess."""
+SlowFast temporal fusion (eval and train mode), box and mask heads,
+detection postprocess, and the training transforms of boxes and gt masks."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,3 +170,97 @@ def test_postprocess_matches_jax():
         np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
         np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
         assert got[3].any()
+
+
+@pytest.mark.parametrize("slow,fast", [(1, 3), (3, 3)])
+def test_slowfast_train_mode_matches_flax(slow, fast):
+    """Train mode (`self.training`) against flax's
+    nn.BatchNorm(use_running_average=False, momentum=0.9) on a pre-padded
+    window, as the train step runs it: outputs to rel 1e-4, the updated
+    running mean and variance to rel 1e-5; eval mode is untouched by it."""
+    tt, h, w = 4, 6, 8
+    jmod, variables, pmod = _slowfast_pair(slow, fast)
+    feats = np.random.default_rng(6).normal(size=(tt + fast - 1, h, w, 16)).astype(np.float32)
+    want, upd = jax.jit(
+        lambda v, x: jmod.apply(v, x, train=True, pre_padded=True, mutable=["batch_stats"])
+    )(variables, jnp.asarray(feats))
+    pmod.train()
+    got = pmod(t(feats), pre_padded=True)
+    assert got.shape == (tt, h, w, 256)
+    assert rel_err(got.detach(), want) < 1e-4
+    new_stats = slow_fast_state_dict(variables["params"], jax.device_get(upd["batch_stats"]))
+    for name, v in pmod.state_dict().items():
+        if "running" in name:
+            assert rel_err(v, new_stats[name]) < 1e-5, name
+            assert not torch.equal(v, t(np.asarray(slow_fast_state_dict(variables["params"], variables["batch_stats"])[name])))
+
+
+def test_enhance_train_mode_chains_running_stats_over_levels(models):
+    """The whole model's `enhance` in train mode: the shared SlowFast module
+    updates its running statistics level after level, as the four calls of
+    one flax `apply` do."""
+    jmodel, variables, pmodel = models
+    rng = np.random.default_rng(7)
+    feats = [rng.normal(size=(4, 8 // s, 12 // s, 256)).astype(np.float32) for s in (1, 1, 2, 4)]
+    want, upd = jax.jit(
+        lambda v, fs: jmodel.apply(v, fs, method="enhance", train=True, pre_padded=True, mutable=["batch_stats"])
+    )(variables, [jnp.asarray(f) for f in feats])
+    before = {k: v.clone() for k, v in pmodel.slow_fast.state_dict().items()}
+    pmodel.train()
+    try:
+        got = pmodel.enhance([t(f) for f in feats], pre_padded=True)
+        after = {k: v.clone() for k, v in pmodel.slow_fast.state_dict().items()}
+    finally:  # the fixture's model is shared: back to eval and its statistics
+        pmodel.eval()
+        pmodel.slow_fast.load_state_dict(before)
+    for a, b in zip(got, want):
+        assert rel_err(a.detach(), b) < 1e-4
+    new_stats = slow_fast_state_dict(variables["params"]["slow_fast"], jax.device_get(upd["batch_stats"]["slow_fast"]))
+    for name, v in after.items():
+        if "running" in name:
+            assert rel_err(v, new_stats[name]) < 1e-5, name
+
+
+def test_training_transforms_match_jax():
+    """`transform_boxes` (ratios of the rounded resized size) and the gt
+    mask resize to the canvas (bilinear, >= 0.5, zero pad) on enlarging
+    resizes, where `jax.image.resize`'s antialiasing does not act."""
+    rng = np.random.default_rng(8)
+    for hw, lo, hi in (((60, 100), 64, 128), ((120, 200), 128, 256)):
+        jt, pt = JaxTransform(hw, min_size=lo, max_size=hi), ImageTransform(hw, min_size=lo, max_size=hi)
+        assert pt.resized_hw[0] > hw[0]
+        boxes = rng.uniform(0, 100, (2, 3, 4)).astype(np.float32)
+        np.testing.assert_array_equal(pt.transform_boxes(t(boxes)).numpy(), np.asarray(jt.transform_boxes(jnp.asarray(boxes))))
+        masks = np.zeros((2, 3, *hw), np.uint8)
+        for f in range(2):
+            for g in range(3):
+                y, x = rng.integers(0, hw[0] - 20), rng.integers(0, hw[1] - 30)
+                masks[f, g, y : y + rng.integers(3, 20), x : x + rng.integers(3, 30)] = 1
+        got = pt.masks_to_canvas(t(masks))
+        rh, rw = jt.resized_hw
+        ch, cw = jt.canvas_hw
+        resized = jax.image.resize(jnp.asarray(masks, jnp.float32), (2, 3, rh, rw), method="bilinear")
+        want = np.pad(np.asarray(resized >= 0.5, np.float32), ((0, 0), (0, 0), (0, ch - rh), (0, cw - rw)))
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_filter_proposals_training_takes_train_top_n():
+    cfg = DetectionConfig(rpn_pre_nms_top_n_test=8, rpn_post_nms_top_n_test=4,
+                          rpn_pre_nms_top_n_train=24, rpn_post_nms_top_n_train=12)
+    anchors = (grid_anchors((6, 6), 8, 32.0), grid_anchors((3, 3), 16, 64.0))
+    rng = np.random.default_rng(9)
+    obj = [rng.normal(size=(2, h, w, 3)).astype(np.float32) for h, w in ((6, 6), (3, 3))]
+    dlt = [(rng.normal(size=(2, h, w, 3, 4)) * 0.1).astype(np.float32) for h, w in ((6, 6), (3, 3))]
+    for training, post in ((False, 4), (True, 12)):
+        jb, js, jv = jax_filter_proposals(
+            [jnp.asarray(o) for o in obj], [jnp.asarray(d) for d in dlt], [jnp.asarray(a) for a in anchors],
+            image_hw=(48.0, 48.0), cfg=cfg, training=training,
+        )
+        pb, ps, pv = filter_proposals(
+            [t(o) for o in obj], [t(d) for d in dlt], [t(a) for a in anchors], image_hw=(48.0, 48.0), cfg=cfg, training=training
+        )
+        assert pb.shape == (2, post, 4)
+        np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+        np.testing.assert_allclose(pb.numpy(), np.asarray(jb), atol=1e-4)

@@ -2,8 +2,11 @@
 JAX package on the same seeded inputs: boxes, anchors, NMS and top-k
 (index-exact, on tie-heavy inputs), the multi-scale RoIAlign's plain version
 (against the JAX gather and the Pallas kernel in interpret mode) and the
-mask paste. The CUDA kernel's own checks, which need the card, are in
+mask paste, and the pool's plain backward (against `jax.vjp` of the JAX
+package's custom-VJP pool and against autograd through the plain forward).
+The CUDA kernels' own checks, which need the card, are in
 `test_torch_cuda.py`."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,8 @@ from slowfast_vos_tpu.ops import nms as jnms
 from slowfast_vos_tpu.ops.paste_masks import paste_masks_in_image as jax_paste
 from slowfast_vos_tpu.ops.roi_align import fpn_level_assignment as jax_levels
 from slowfast_vos_tpu.ops.roi_align import multiscale_roi_align as jax_roi_align
+from slowfast_vos_tpu.ops.roi_align_mm import _interp_matrix_1d as jax_interp_matrix_1d
+from slowfast_vos_tpu.ops.roi_align_mm import multiscale_roi_align_mmgrad
 from slowfast_vos_tpu.ops.roi_align_pallas import multiscale_roi_align_pallas
 from slowfast_vos_tpu_torch.models.anchors import fpn_anchors
 from slowfast_vos_tpu_torch.ops import boxes as pboxes
@@ -294,3 +299,108 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     for bad in (levels.long(), levels[:-1], levels.reshape(2, -1), levels.repeat_interleave(2)[::2]):
         with pytest.raises(ValueError, match="levels must be"):
             pra.launch_kernel(feats, rois, bad, SCALES, 7)
+
+
+def test_encode_boxes_takes_frame_batches():
+    """[n, P, 4] boxes, as the losses give them, against JAX per frame."""
+    rng = np.random.default_rng(9)
+    ref = np.stack([random_boxes(rng, 20) for _ in range(3)])
+    props = np.stack([random_boxes(rng, 20) for _ in range(3)])
+    w = (10.0, 10.0, 5.0, 5.0)
+    got = pboxes.encode_boxes(t(ref), t(props), w)
+    assert got.shape == (3, 20, 4)
+    for f in range(3):
+        np.testing.assert_allclose(got[f].numpy(), np.asarray(jboxes.encode_boxes(ref[f], props[f], w)), rtol=1e-5, atol=1e-5)
+
+
+def test_interp_matrix_matches_jax():
+    """Rois across, on and off the level's edges, and sub-pixel ones."""
+    rng = np.random.default_rng(10)
+    starts = np.concatenate([rng.uniform(-20, 60, 30), [-1.2, 47.9, 0.0]]).astype(np.float32)
+    bins = np.concatenate([rng.uniform(0.05, 9, 30), [0.5, 0.3, 1 / 7]]).astype(np.float32)
+    for out_size in (7, 14):
+        got = pra.interp_matrix_1d(t(starts), t(bins), 48, out_size, 2)
+        want = np.asarray(jax_interp_matrix_1d(jnp.asarray(starts), jnp.asarray(bins), 48, out_size, 2, jnp.float32))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
+def _grad_inputs(rng, frames, out_size, edge_cases):
+    if edge_cases:
+        feats, rois = edge_case_batch(rng, frames, c=8)
+    else:
+        feats = _pyramid(rng, frames)
+        rois = np.stack([_rois(rng, 19) for _ in range(frames)])
+    g = rng.normal(size=(*rois.shape[:2], out_size, out_size, feats[0].shape[-1])).astype(np.float32)
+    return feats, rois, g
+
+
+def _backward(feats, rois, g, out_size):
+    """The pool's gradient through `multiscale_roi_align` (its autograd
+    Function, here the plain backward)."""
+    levels = [t(f).requires_grad_(True) for f in feats]
+    pooled = pra.multiscale_roi_align(levels, t(rois), output_size=out_size)
+    return torch.autograd.grad(pooled, levels, t(g))
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_plain_backward_matches_jax_vjp(out_size):
+    """Against `jax.vjp` of `multiscale_roi_align_mmgrad` (the JAX custom
+    VJP the train step uses), frame by frame, rel 1e-5 of each level's
+    largest gradient."""
+    rng = np.random.default_rng(11)
+    feats, rois, g = _grad_inputs(rng, 2, out_size, edge_cases=False)
+    got = _backward(feats, rois, g, out_size)
+
+    @jax.jit
+    def jax_backward(frame, r, gf):
+        pool = lambda *fs: multiscale_roi_align_mmgrad(list(fs), r, SCALES, output_size=out_size)  # noqa: E731
+        return jax.vjp(pool, *frame)[1](gf)
+
+    for f in range(2):
+        want_levels = jax_backward([jnp.asarray(fl[f]) for fl in feats], jnp.asarray(rois[f]), jnp.asarray(g[f]))
+        for gl, wl in zip(got, want_levels):
+            want = np.asarray(wl)
+            assert np.abs(gl[f].numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_plain_backward_matches_autograd_of_plain_forward(out_size):
+    """Against torch autograd through the gather of
+    `multiscale_roi_align_plain`, on the kernel's edge-case rois (clamped,
+    sub-pixel, zero-area, off-canvas, >20:1, 28 and 56 taps a side): rel
+    1e-5. The rois get no gradient."""
+    rng = np.random.default_rng(12)
+    feats, rois, g = _grad_inputs(rng, 2, out_size, edge_cases=True)
+    got = _backward(feats, rois, g, out_size)
+    levels = [t(f).requires_grad_(True) for f in feats]
+    want = torch.autograd.grad(pra.multiscale_roi_align_plain(levels, t(rois), output_size=out_size), levels, t(g))
+    for gl, wl in zip(got, want):
+        assert gl.shape == wl.shape and gl.dtype == wl.dtype
+        assert float((gl - wl).abs().max()) <= 1e-5 * float(wl.abs().max())
+    r = t(rois).requires_grad_(True)
+    pra.multiscale_roi_align([t(f).requires_grad_(True) for f in feats], r, output_size=out_size).sum().backward()
+    assert r.grad is None
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
+    """The backward wrapper's checks run before any build or launch."""
+    rng = np.random.default_rng(13)
+    feats, rois, g = _grad_inputs(rng, 2, 7, edge_cases=False)
+    hws = [f.shape[1:3] for f in feats]
+    rois, g = t(rois), t(g)
+    with pytest.raises(ValueError, match="output_size"):
+        pra.roi_align_backward_cuda(g, rois, hws, output_size=9)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pra.roi_align_backward_cuda(g.half(), rois, hws)
+    with pytest.raises(ValueError, match="g must be"):
+        pra.roi_align_backward_cuda(g[:, :-1], rois, hws)
+    with pytest.raises(ValueError, match="g must be"):
+        pra.roi_align_backward_cuda(g.transpose(2, 3), rois, hws)
+    with pytest.raises(ValueError, match="rois must be"):
+        pra.roi_align_backward_cuda(g, rois.double(), hws)
+    with pytest.raises(ValueError, match="4 FPN levels"):
+        pra.roi_align_backward_cuda(g, rois, hws[:3], SCALES[:3])
+    levels = pra.fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+    for bad in (levels.long(), levels[:-1]):
+        with pytest.raises(ValueError, match="levels must be"):
+            pra.roi_align_backward_cuda(g, rois, hws, levels=bad)
