@@ -30,7 +30,8 @@ Phases, each fatal on failure:
              synthetic rois with the edge cases and on the main path's own
              rois, and at 40 channels on the synthetic rois; the backward
              kernel likewise at the train path's shapes ([2, 512] and
-             [2, 128] rois), per pixel against the plain backward;
+             [2, 128] rois), per pixel against the plain backward, and
+             bitwise equal over two calls on the train path's rois;
 5. reference - a small f32 input through the same entry point on the card
              and on the CPU (the plain versions), compared; and one tiny f32
              train step on both, same weights and draws;
@@ -230,21 +231,28 @@ def phase_kernels(ra, main_rois: dict) -> dict:
     return errs
 
 
-def main_path_rois(pipeline_mod, pipe, clip) -> dict:
-    """The rois of the first superchunk that `infer_sequence` pools: its
-    proposals (7x7 pool) and its detection boxes (14x14 pool)."""
-    kept = {}
-    pool = pipeline_mod.multiscale_roi_align
+@contextlib.contextmanager
+def keeping_rois(module):
+    """Within the block, `module.multiscale_roi_align` keeps the first rois
+    it pools at each output size in the dict it yields."""
+    kept, pool = {}, module.multiscale_roi_align
 
     def keep(feats, rois, *args, output_size, **kw):
         kept.setdefault(output_size, rois.detach().contiguous().clone())
         return pool(feats, rois, *args, output_size=output_size, **kw)
 
-    pipeline_mod.multiscale_roi_align = keep
+    module.multiscale_roi_align = keep
     try:
-        pipe.infer_sequence(clip[:SC])
+        yield kept
     finally:
-        pipeline_mod.multiscale_roi_align = pool
+        module.multiscale_roi_align = pool
+
+
+def main_path_rois(pipeline_mod, pipe, clip) -> dict:
+    """The rois of the first superchunk that `infer_sequence` pools: its
+    proposals (7x7 pool) and its detection boxes (14x14 pool)."""
+    with keeping_rois(pipeline_mod) as kept:
+        pipe.infer_sequence(clip[:SC])
     return kept
 
 
@@ -324,28 +332,36 @@ def training_window(data, hw, frames, max_gt, index):
     return windows[index], images
 
 
-def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict]:
-    """8 full-width train steps; returns (launch counts of those steps, the
-    first step's sampled rois by output size)."""
+def full_width_trainer(pipeline_mod, train_mod, data):
+    """Phase 3's set-up: the full-width bf16 model with seeded weights, its
+    `Trainer` and one window. Returns (pipe, model, trainer, batch, clip)."""
     pipe, model = pipeline_mod.build_pipeline(
         slow=3, fast=3, original_hw=(480, 854), dtype=torch.bfloat16, device="cuda", superchunk=SC
     )
     pipeline_mod.init_weights(model, seed=0)
     trainer = train_mod.Trainer(pipe, seed=0)
     batch, clip = training_window(data, (480, 854), 8, pipe.cfg.max_gt, index=1)
+    return pipe, model, trainer, batch, clip
+
+
+def train_path_rois(pipeline_mod, train_mod, data) -> dict:
+    """The rois that the first train step of phase 3's set-up pools."""
+    *_, trainer, batch, _ = full_width_trainer(pipeline_mod, train_mod, data)
+    with keeping_rois(train_mod.train_step) as kept:
+        trainer.step(batch)
+    return kept
+
+
+def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict]:
+    """8 full-width train steps; returns (launch counts of those steps, the
+    first step's sampled rois by output size)."""
+    pipe, model, trainer, batch, clip = full_width_trainer(pipeline_mod, train_mod, data)
     log(f"train: window of {batch['images'].shape[0]} frames 480x854, {int(batch['gt_valid'].sum())} gt boxes, "
         f"feat_valid {batch['feat_valid'].tolist()}")
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    kept, pool = {}, train_mod.train_step.multiscale_roi_align
-
-    def keep(feats, rois, *args, output_size, **kw):
-        kept.setdefault(output_size, rois.detach().clone())
-        return pool(feats, rois, *args, output_size=output_size, **kw)
-
     keys = (7, 14, ("backward", 7), ("backward", 14))
     per_step, times = [], []
-    train_mod.train_step.multiscale_roi_align = keep
-    try:
+    with keeping_rois(train_mod.train_step) as kept:
         torch.cuda.reset_peak_memory_stats()
         ra.launches.clear()
         for i in range(TRAIN_STEPS):
@@ -360,8 +376,6 @@ def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict]:
             check(all(np.isfinite(v) for v in values.values()), f"step {i}: non-finite loss {values}")
             log(f"train: step {i} {times[-1]:.1f} ms " + " ".join(f"{k} {v:.4f}" for k, v in values.items()))
         counts = {k: ra.launches[k] for k in keys}
-    finally:
-        train_mod.train_step.multiscale_roi_align = pool
     peak = torch.cuda.max_memory_allocated()
     log(f"train: launches over {TRAIN_STEPS} steps: pool7 {counts[7]}, pool14 {counts[14]}, "
         f"backward pool7 {counts['backward', 7]}, backward pool14 {counts['backward', 14]}")
@@ -395,8 +409,10 @@ def phase_backward_kernels(ra, train_rois: dict) -> dict:
     """The backward kernel against the plain backward on the train path's
     rois and on synthetic ones, f32 (TF32 off) and bf16, per pixel within
     1e-6 + rtol * B, B the plain backward of |g| (the sum of the
-    contributions' magnitudes: the atomics add them in no fixed order).
-    Returns the largest bf16 max abs error of each pool."""
+    contributions' magnitudes: the kernel adds them in a fixed order, but
+    not in the plain version's); on the train path's rois, a second call
+    must give the same bits. Returns the largest bf16 max abs error of each
+    pool."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rng = np.random.default_rng(5)
     errs = {}
@@ -416,6 +432,11 @@ def phase_backward_kernels(ra, train_rois: dict) -> dict:
                 log(f"kernel backward pool{out_size} {roi_set} {list(rois.shape[:2])} C=256 {name}: max abs err "
                     f"{err:.3e}, largest share of the per-pixel tolerance {worst:.3f} (1e-6 + {rtol:.3g} B)")
                 check(worst <= 1.0, f"backward pool{out_size} {roi_set} {name} disagrees with the plain backward")
+                if roi_set == "train-path":
+                    again = ra.roi_align_backward_cuda(gd, rois, LEVEL_HWS, output_size=out_size)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    log(f"kernel backward pool{out_size} train-path {name}: two calls bitwise equal {same}")
+                    check(same, f"backward pool{out_size} {name}: two calls on the same inputs differ")
     return errs
 
 
@@ -521,7 +542,7 @@ def backward_timings(ra, errs: dict, counts: dict, train_rois: dict) -> list:
             per_set[roi_set] = {"rois": list(rois.shape[:2]), "ms": ms, "kernel_only_ms": only_ms,
                                 "wrapper_call_ms": wrapper_ms, "bound_ms": bound_ms, "bound_by": bound_by}
             log(f"time: backward pool{out_size} bf16 {roi_set} {list(rois.shape[:2])}: {ms:.4f} ms device time with "
-                f"level assignment, {only_ms:.4f} ms without (f32 zeroing, atomics and bf16 cast included; "
+                f"level assignment, {only_ms:.4f} ms without (geometry and gather kernels; "
                 f"{wrapper_ms:.4f} ms per wrapper call on the host clock); bound {bound_ms:.4f} ms ({bound_by})")
         rois = train_rois[out_size]
         g = torch.randn((*rois.shape[:2], out_size, out_size, 256), generator=gen, device="cuda").to(torch.bfloat16)

@@ -85,6 +85,7 @@
 //    tolerance, and the kernel is bound by bytes.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -452,169 +453,491 @@ cudaError_t launch_any(int output_size, const void* const feats[4], const int hw
 // Replaces the JAX package's custom VJP `slowfast_vos_tpu/ops/roi_align_mm.py
 // ::_msra_mmgrad_bwd`, which XLA computes as dense separable matmuls (no
 // Pallas kernel): per level, grad = sum over the level's rois of
-// A_y^T . g . A_x, with [rois, H_l, 7, C] temporaries. Here, per roi r of a
-// [T, N] batch on its level l, with the forward's tables (`build_axis`, the
-// same rounding and the level passed in):
+// A_y^T . g . A_x, with [rois, H_l, 7, C] temporaries. Here, with the
+// forward's tables (`build_axis`, the same rounding and the level passed in):
 //
-//   grad_l[frame, y_i, x_j, c] += sum_{ph, pw} Wy[ph, i] Wx[pw, j] g[r, ph, pw, c]
+//   grad_l[f, y_i, x_j, c] = sum over the rois r of frame f on level l, in
+//       ascending r, of sum_{ph, pw} Wy_r[ph, i] Wx_r[pw, j] g[r, ph, pw, c]
 //
-// over the roi's distinct taps i (rows) and j (columns): the transpose of
-// the forward's map, so a sample outside [-1, H] adds nothing.
+// over each roi's distinct taps i (rows) and j (columns): the transpose of
+// the forward's map, so a sample outside [-1, H] adds nothing and a pixel
+// that no roi samples gets 0.
 //
-// Design, simple first: a CTA of 256 threads per roi (pool7, its channels
-// in 4 slices of 64) or per (roi, 64 channels in 4 slices of 16) (pool14).
-//   1. Geometry as in the forward, then the inverse runs: for each
-//      distinct tap, the first and last bin whose run holds it (runs are
-//      contiguous and monotone, so the bins of a tap are contiguous).
-//   2. Column pass, threads over (ph, j, c): H[ph, j, c] = sum over the
-//      bins pw of tap j of Wx[pw, j] g[r, ph, pw, c], in f32 to shared
-//      memory (OUT x 4*OUT x slice floats: 50,176 bytes at both pools).
-//   3. Row pass, threads over (i, j, c), c fastest: the sum over the bins
-//      ph of tap i of Wy[ph, i] H[ph, j, c], added with one atomicAdd into
-//      the f32 gradient (a warp adds to 32 consecutive floats).
-// The caller zeroes the f32 gradient; for bf16 features a second kernel
-// casts it to bf16 (one rounding, after every roi has added).
+// Design: the owner of a gradient tile gathers what lands in it.
+//   1. Geometry, once per roi (`roi_geometry_kernel`, a warp pair per roi):
+//      both axes by `build_axis` with pixel indices (stride 1), written to
+//      a scratch record (`BwdAxis`: 368 bytes an axis at pool7, 736 at
+//      pool14) with each distinct tap's inverse run (the first and last bin
+//      whose run holds it; runs are contiguous and monotone, so the bins of
+//      a tap are contiguous), and the roi's footprint box (first and last
+//      distinct row and column; empty without a valid sample).
+//   2. Gather (`roi_align_backward_kernel`), one CTA per (frame, level,
+//      16x16-pixel tile, 32-channel slice). It scans its frame's rois in
+//      ascending index, 256 at a time, lists in order (ballot and prefix
+//      count) those on its level whose box meets the tile, and counts each
+//      listed roi's distinct rows and columns inside the tile (a warp per
+//      roi, ballots over its taps). Then, roi after roi:
+//        - column pass, over (bin ph whose run touches the tile's rows,
+//          distinct column j inside the tile, 8-channel item):
+//          H[ph, j, c] = sum over the bins pw of tap j of Wx[pw, j] g[r, ph, pw, c],
+//          f32 in shared memory;
+//        - row pass, over (distinct row i inside the tile, j, item): adds
+//          the sum over the bins ph of tap i of Wy[ph, i] H[ph, j, c] into
+//          the CTA's f32 accumulator tile in shared memory. Within one roi
+//          distinct (i, j) are distinct pixels, so a plain read-modify-write
+//          suffices; a barrier separates rois.
+//      While roi e's passes run, roi e + 1's record and g slice are on
+//      their way into the other shared-memory buffer (cp.async), so a roi
+//      costs two barriers and no load from L2 on its chain. Last, the CTA
+//      writes its tile once with 16-byte stores, rounded once to bf16 (or
+//      kept f32); a tile that no roi touches writes zeros.
 //
-// Bound: bytes. The function reads g and writes the gradient pyramid once
-// (dense: zeros where no roi samples); the f32 buffer's zeroing, atomics
-// and read-back are what this design adds on top. Atomics from overlapping
-// rois meet in L2 and are summed there in no fixed order, so f32 results
-// vary from run to run by rounding.
+// Bound. Bytes bound the function: it reads g and writes the dense
+// gradient pyramid once (88 MB in bf16 for 2 frames of the 768x1344 canvas
+// at 256 channels, 0.034 ms at 3.35 TB/s); the kernel adds the roi records
+// (1-3 KB a roi) and, through L2, each roi's g slice once per tile and slice
+// its footprint meets. It does not run at that bound: the walk is serial
+// per CTA and the tiles under many rois (45-76 rois on one P4 tile for the
+// synthetic rois, both objects' positives in training) set its time. Timed
+// with a part cut out (pool7 [2, 512] synthetic / train-path rois, in the
+// setting of the departures below): no roi walked 0.040 / 0.040 ms, the walk's
+// skeleton (copies, counts, barriers) 0.137 / 0.098, plus the column pass
+// 0.187 / 0.117, plus the row pass (all) 0.293 / 0.146; without the g copy
+// 0.262 / 0.130. The row pass's shared-memory read-modify-write and the
+// per-roi latency of the skeleton take most of it. No global atomics and
+// no f32 pyramid, and every pixel sums its contributions in one fixed
+// order, so results repeat bit for bit.
+//
+// Departures from the design first planned, with their times (bf16, 256
+// channels, kernel alone with the levels given, NVIDIA H100 80GB HBM3 at
+// 700 W, `scripts/torch_roi_align_compare.py`; pool7 [2, 512] and pool14
+// [2, 128], synthetic / train-path rois; the atomic kernel this replaces:
+// 0.786 / 0.527 and 0.454 / 0.308 ms):
+//  * The first form read g from L2 in the column pass and counted a roi's
+//    taps inside the tile while staging it, with 64-channel slices at
+//    pool7: 0.434 / 0.232 and 0.178 / 0.131 ms. Copying the next roi's
+//    record and g slice with cp.async and counting taps per chunk took the
+//    L2 latency off each roi's chain: 0.364 / 0.136 and 0.174 / 0.090.
+//  * 32-channel slices at pool7 (more CTAs under a hot spot): 0.319 /
+//    0.138 against 0.364 / 0.136 with 64. 16-channel slices: 0.337 / 0.178
+//    and 0.146 / 0.090 (8-channel items).
+//  * 8-channel work items (one chain of shared-memory loads serves 8
+//    channels): 0.293 / 0.146 and 0.157 / 0.089, against 0.318 / 0.138 and
+//    0.174 / 0.090 with 4.
+//  * 16x16 tiles: 8x16 walked more rois per roi's footprint, 0.296 / 0.149
+//    and 0.187 / 0.104; 512 threads, 0.343 / 0.173 and 0.160 / 0.096;
+//    128 threads (first form) 0.703 / 0.307 at pool7. Unrolling the item
+//    loops by 2 changed nothing (0.295 / 0.145).
+//  * Prefetching two rois ahead (three buffers): 0.294 / 0.147 and 0.159 /
+//    0.090; odd rows and pixels taking an item's second float4 first (no
+//    2-way bank conflict): 0.299 / 0.153 and 0.159 / 0.091; against 0.292 /
+//    0.146 and 0.158 / 0.089 for this form in the same call. Both lost.
+//  * No split of a hot tile's roi list over several CTAs with f32 partial
+//    tiles: placing the partials without a global counter needs a count
+//    and prefix pass of its own; untried.
+//  * No TMA or wgmma: a roi's footprint and taps vary in shape, and the
+//    weights must stay f32 for the f32 tolerance.
 
+// Gather tile of each output size: pixel rows and columns, channel slice,
+// channels per work item (4 or 8: one thread's chain of shared-memory
+// loads serves them all), threads per CTA.
 template <int OUT>
 struct BwdTile;
 
 template <>
 struct BwdTile<7> {
-  static constexpr int kSlice = 64, kPasses = 4, kThreads = 256;
+  static constexpr int kRows = 16, kCols = 16, kSlice = 32, kItem = 8, kThreads = 256;
 };
 
 template <>
 struct BwdTile<14> {
-  static constexpr int kSlice = 16, kPasses = 4, kThreads = 256;
+  static constexpr int kRows = 16, kCols = 16, kSlice = 32, kItem = 8, kThreads = 256;
 };
 
+// One axis of one roi as the gather reads it (scratch memory).
+template <int OUT>
+struct alignas(16) BwdAxis {
+  static constexpr int kCand = Axis<OUT>::kCand;
+  int tap[kCand];           // distinct taps (pixel indices), ascending; INT_MAX past `count`
+  int span[kCand];          // bins whose runs hold tap i: first | last << 16
+  int start[OUT];           // bin b's run: distinct taps start[b] ..
+  float wt[OUT][kMaxRun];   // .. with these weights (0 past the run)
+  int count;                // distinct taps
+};
+
+template <int OUT>
+struct BwdRoi {
+  BwdAxis<OUT> axis[2];  // 0: y, 1: x
+};
+
+template <int OUT>
+size_t backward_scratch_bytes(int num_rois) {
+  return static_cast<size_t>(num_rois) * (sizeof(BwdRoi<OUT>) + sizeof(int4));
+}
+
+template <typename T>
 struct GradPyramid {
-  float* grad[4];  // level l: [T, h[l], w[l], C] f32, zeroed by the caller
+  T* grad[4];  // level l: [T, h[l], w[l], C], NHWC contiguous, written whole
   int h[4];
   int w[4];
   float scale[4];
+  int tiles_x[4];   // tile columns of level l
+  int tile_end[4];  // tiles of levels 0..l of one frame
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kGeomRois = 4;  // rois per CTA of the geometry kernel
+
+// Writes recs[r] and boxes[r] = (first row, last row, first column, last
+// column) of roi r's distinct taps, or (1, 0, 1, 0) where it has none.
+template <typename T, int OUT>
+__global__ void __launch_bounds__(64 * kGeomRois)
+    roi_geometry_kernel(GradPyramid<T> pyr, const float* __restrict__ rois, const int* __restrict__ levels,
+                        int num_rois, BwdRoi<OUT>* __restrict__ recs, int4* __restrict__ boxes) {
+  constexpr int kCand = Axis<OUT>::kCand;
+  __shared__ Axis<OUT> axes[kGeomRois][2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = warp / 2, a = warp % 2;
+  const int r = blockIdx.x * kGeomRois + slot;
+  Axis<OUT>& ax = axes[slot][a];
+  if (r < num_rois) {  // warp-uniform
+    const int lv = levels[r];
+    build_axis<OUT>(ax, a, lane, rois, r, pick(pyr.scale, lv), a == 0 ? pick(pyr.h, lv) : pick(pyr.w, lv), 1);
+    __syncwarp();
+    BwdAxis<OUT>& out = recs[r].axis[a];
+    for (int i = lane; i < kCand; i += 32) {
+      int first = OUT, last = -1;
+      for (int b = 0; b < OUT; ++b) {
+        if (ax.start[b] <= i && i < ax.start[b] + ax.len[b]) {
+          first = min(first, b);
+          last = b;
+        }
+      }
+      const bool on = i < ax.count;
+      out.tap[i] = on ? ax.off[i] : INT_MAX;
+      out.span[i] = on ? first | last << 16 : 0;
+    }
+    if (lane < OUT) {
+      out.start[lane] = ax.start[lane];
+#pragma unroll
+      for (int k = 0; k < kMaxRun; ++k) out.wt[lane][k] = ax.wt[lane][k];
+    }
+    if (lane == 0) out.count = ax.count;
+  }
+  __syncthreads();
+  if (r < num_rois && a == 0 && lane == 0) {
+    const Axis<OUT>& ay = axes[slot][0];
+    const Axis<OUT>& ax2 = axes[slot][1];
+    boxes[r] = ay.count > 0 && ax2.count > 0
+                   ? make_int4(ay.off[0], ay.off[ay.count - 1], ax2.off[0], ax2.off[ax2.count - 1])
+                   : make_int4(1, 0, 1, 0);
+  }
+}
+
+// 4 * kF4 channels of g as f32, from shared memory.
+template <int kF4>
+__device__ __forceinline__ void smem_item(const float* p, float4 (&v)[kF4]) {
+#pragma unroll
+  for (int u = 0; u < kF4; ++u) v[u] = reinterpret_cast<const float4*>(p)[u];
+}
+
+__device__ __forceinline__ float4 bf16x4(unsigned lo, unsigned hi) {
+  return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u), __uint_as_float(hi << 16),
+                     __uint_as_float(hi & 0xffff0000u));
+}
+
+template <int kF4>
+__device__ __forceinline__ void smem_item(const __nv_bfloat16* p, float4 (&v)[kF4]) {
+  if constexpr (kF4 % 2 == 0) {
+#pragma unroll
+    for (int u = 0; u < kF4 / 2; ++u) {
+      const uint4 b = reinterpret_cast<const uint4*>(p)[u];
+      v[2 * u] = bf16x4(b.x, b.y);
+      v[2 * u + 1] = bf16x4(b.z, b.w);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kF4; ++u) {
+      const uint2 b = reinterpret_cast<const uint2*>(p)[u];
+      v[u] = bf16x4(b.x, b.y);
+    }
+  }
+}
+
+__device__ __forceinline__ void fma4(float4& s, float w, float4 v) {
+  s.x = fmaf(w, v.x, s.x);
+  s.y = fmaf(w, v.y, s.y);
+  s.z = fmaf(w, v.z, s.z);
+  s.w = fmaf(w, v.w, s.w);
+}
+
+// Dynamic shared memory of the gather: the f32 tile, one roi's column
+// sums, and two buffers of a roi's g slice in g's dtype.
+template <typename T, int OUT>
+constexpr size_t backward_smem_bytes() {
+  using Tl = BwdTile<OUT>;
+  return static_cast<size_t>(Tl::kRows + OUT) * Tl::kCols * Tl::kSlice * sizeof(float) +
+         2 * static_cast<size_t>(OUT) * OUT * Tl::kSlice * sizeof(T);
+}
 
 template <typename T, int OUT>
 __global__ void __launch_bounds__(BwdTile<OUT>::kThreads)
-    roi_align_backward_kernel(GradPyramid pyr, const T* __restrict__ g, const float* __restrict__ rois,
-                              const int* __restrict__ levels, int rois_per_frame, int channels, int ctas_per_roi) {
-  constexpr int CS = BwdTile<OUT>::kSlice;
-  constexpr int kPasses = BwdTile<OUT>::kPasses;
-  constexpr int kThreads = BwdTile<OUT>::kThreads;
+    roi_align_backward_kernel(GradPyramid<T> pyr, const T* __restrict__ g, const int* __restrict__ levels,
+                              const BwdRoi<OUT>* __restrict__ recs, const int4* __restrict__ boxes,
+                              int rois_per_frame, int channels, int slices) {
+  using Tl = BwdTile<OUT>;
+  constexpr int TY = Tl::kRows, TX = Tl::kCols, CS = Tl::kSlice, kThreads = Tl::kThreads;
+  constexpr int kQ = CS / 4;             // float4s of a pixel's slice in the f32 tiles
+  constexpr int kItem = Tl::kItem;       // channels per work item
+  constexpr int kF4 = kItem / 4;         // float4s per work item
+  constexpr int kV = CS / kItem;         // work items per pixel (or per column sum)
+  constexpr int kWarps = kThreads / 32;
   constexpr int kCand = Axis<OUT>::kCand;
-  static_assert(kThreads >= 64, "a warp per axis");
+  constexpr int kBins = OUT * OUT;
+  constexpr int kRecVecs = static_cast<int>(sizeof(BwdRoi<OUT>) / sizeof(int4));
+  constexpr int kElem16 = 16 / static_cast<int>(sizeof(T));  // elements of g in 16 bytes
+  constexpr unsigned kAll = 0xffffffffu;
+  static_assert(CS % 8 == 0 && CS % kItem == 0 && kItem % 4 == 0 && kThreads % 32 == 0, "whole vectors, whole warps");
+  static_assert(sizeof(BwdRoi<OUT>) % sizeof(int4) == 0, "records copy as 16-byte vectors");
 
-  __shared__ Axis<OUT> axes[2];  // 0: y, 1: x
-  __shared__ int first[2][kCand], last[2][kCand];  // bins whose runs hold each distinct tap
-  extern __shared__ float hsum[];                  // H[ph][j][c]
+  __shared__ BwdRoi<OUT> tab[2];    // records of the current and the next listed roi
+  __shared__ int4 rng[kThreads];    // per listed roi: its distinct taps inside the tile, rows ia..ib-1, columns ja..jb-1
+  __shared__ int list[kThreads];    // listed rois of one scanned chunk, ascending
+  __shared__ int warp_count[kWarps];
+  extern __shared__ float4 smem[];
+  float4* acc = smem;                  // [TY * TX][kQ]: the gradient tile in f32
+  float4* hsum = smem + TY * TX * kQ;  // [<= OUT * TX][kQ]: one roi's column sums
+  T* gbuf = reinterpret_cast<T*>(hsum + OUT * TX * kQ);  // [2][OUT * OUT][CS]: g slices
 
-  const int r = blockIdx.x / ctas_per_roi;
-  const int c_begin = (blockIdx.x % ctas_per_roi) * CS * kPasses;
-  const int lv = levels[r];
-  const int frame = r / rois_per_frame;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // CTAs are frame-major, then level, tile (row-major), channel slice.
+  const int slice = blockIdx.x % slices;
+  const int tile_all = blockIdx.x / slices;
+  const int frame = tile_all / pyr.tile_end[3];
+  int t = tile_all - frame * pyr.tile_end[3];
+  const int lv = (t >= pyr.tile_end[0]) + (t >= pyr.tile_end[1]) + (t >= pyr.tile_end[2]);
+  t -= lv > 0 ? pick(pyr.tile_end, lv - 1) : 0;
   const int h = pick(pyr.h, lv);
   const int w = pick(pyr.w, lv);
-  const float scale = pick(pyr.scale, lv);
-  float* level = pick(pyr.grad, lv) + static_cast<size_t>(frame) * h * w * channels;
-  const T* g_r = g + static_cast<size_t>(r) * OUT * OUT * channels;
-  const int tid = threadIdx.x;
+  const int tiles_x = pick(pyr.tiles_x, lv);
+  const int y0 = t / tiles_x * TY;
+  const int x0 = t % tiles_x * TX;
+  const int c0 = slice * CS;
+  const int nc = min(CS, channels - c0);
+  const int nvi = (nc + kItem - 1) / kItem;  // items that hold a channel (past nc: ignored, never stored)
+  const int nv16 = nc / kElem16;  // 16-byte vectors of a bin's slice
 
-  // 1. Geometry, then the inverse runs.
-  if (tid < 64) {
-    const int a = tid / 32;
-    build_axis<OUT>(axes[a], a, tid % 32, rois, r, scale, a == 0 ? h : w, a == 0 ? w * channels : channels);
-  }
-  __syncthreads();
-  for (int k = tid; k < 2 * kCand; k += kThreads) {
-    const int a = k / kCand;
-    const int i = k % kCand;
-    const Axis<OUT>& ax = axes[a];
-    int lo = OUT, hi = -1;
-    if (i < ax.count) {
-      for (int b = 0; b < OUT; ++b) {
-        if (ax.start[b] <= i && i < ax.start[b] + ax.len[b]) {
-          lo = min(lo, b);
-          hi = b;
+  for (int i = tid; i < TY * TX * kQ; i += kThreads) acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // Starts the asynchronous copy of listed roi e's record and g slice into
+  // buffer `buf`; `__pipeline_wait_prior(0)` by every thread, then a
+  // barrier, make them visible.
+  auto prefetch = [&](int e, int buf) {
+    const int r = list[e];
+    const int4* src = reinterpret_cast<const int4*>(recs + r);
+    int4* dst = reinterpret_cast<int4*>(tab + buf);
+    for (int v = tid; v < kRecVecs; v += kThreads) __pipeline_memcpy_async(dst + v, src + v, sizeof(int4));
+    const T* g_r = g + static_cast<size_t>(r) * kBins * channels + c0;
+    T* gb = gbuf + buf * kBins * CS;
+    for (int v = tid; v < kBins * nv16; v += kThreads) {
+      const int bin = v / nv16, u = v - bin * nv16;
+      __pipeline_memcpy_async(gb + bin * CS + u * kElem16, g_r + bin * channels + u * kElem16, 16);
+    }
+    __pipeline_commit();
+  };
+
+  for (int chunk = 0; chunk < rois_per_frame; chunk += kThreads) {
+    // 1. The chunk's rois on this level whose footprint box meets the tile.
+    const int k = chunk + tid;
+    bool keep = false;
+    if (k < rois_per_frame) {
+      const int r = frame * rois_per_frame + k;
+      const int4 bx = boxes[r];
+      keep = levels[r] == lv && bx.x <= bx.y && bx.x < y0 + TY && bx.y >= y0 && bx.z < x0 + TX && bx.w >= x0;
+    }
+    const unsigned bits = __ballot_sync(kAll, keep);
+    if (lane == 0) warp_count[warp] = __popc(bits);
+    __syncthreads();  // also ends the previous chunk's use of list, rng and the buffers
+    int pos = __popc(bits & ((1u << lane) - 1u)), n = 0;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      pos += v < warp ? warp_count[v] : 0;
+      n += warp_count[v];
+    }
+    if (keep) list[pos] = frame * rois_per_frame + k;
+    __syncthreads();
+    if (n > 0) prefetch(0, 0);
+    // Each listed roi's distinct taps inside the tile, a warp per roi:
+    // ballots count the taps before the tile and before its end.
+    for (int e = warp; e < n; e += kWarps) {
+      int cnt[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int* taps = recs[list[e]].axis[a].tap;
+        const int lo = a == 0 ? y0 : x0;
+        const int hi = lo + (a == 0 ? TY : TX);
+#pragma unroll
+        for (int i0 = 0; i0 < kCand; i0 += 32) {
+          const int tap = i0 + lane < kCand ? __ldg(taps + i0 + lane) : INT_MAX;
+          cnt[2 * a] += __popc(__ballot_sync(kAll, tap < lo));
+          cnt[2 * a + 1] += __popc(__ballot_sync(kAll, tap < hi));
+        }
+      }
+      if (lane == 0) rng[e] = make_int4(cnt[0], cnt[1], cnt[2], cnt[3]);
+    }
+
+    // 2. Roi after roi, in the listed order; roi e + 1's copy runs under
+    // roi e's passes.
+    for (int e = 0; e < n; ++e) {
+      const int buf = e & 1;
+      __pipeline_wait_prior(0);
+      __syncthreads();  // roi e's buffers and the ranges in place; the previous row pass done
+      if (e + 1 < n) prefetch(e + 1, buf ^ 1);
+      const BwdAxis<OUT>& ay = tab[buf].axis[0];
+      const BwdAxis<OUT>& ax = tab[buf].axis[1];
+      const int4 rg = rng[e];
+      const int ia = rg.x, ib = rg.y, ja = rg.z;
+      const int nj = rg.w - ja;
+      const bool hit = ia < ib && nj > 0;
+      const int ph_lo = hit ? ay.span[ia] & 0xffff : 0;
+      const float inv_nj = 1.0f / static_cast<float>(max(nj, 1));
+      if (hit) {
+        // Column pass: H[ph, j, q] = sum over the bins pw of tap j of Wx * g.
+        // Items (row = (ph - ph_lo) * nj + j - ja, quad), quad fastest;
+        // row / nj by a float reciprocal, exact as in the forward.
+        const int nph = (ay.span[ib - 1] >> 16) + 1 - ph_lo;
+        const T* gb = gbuf + buf * kBins * CS + ph_lo * OUT * CS;
+        for (int item = tid; item < nph * nj * kV; item += kThreads) {
+          const int v = item % kV;
+          const int row = item / kV;
+          if (v >= nvi) continue;
+          const int dph = __float2int_rz((static_cast<float>(row) + 0.5f) * inv_nj);
+          const int j = ja + row - dph * nj;
+          const int sp = ax.span[j];
+          const T* gp = gb + dph * OUT * CS + v * kItem;
+          float4 s[kF4], gv[kF4];
+#pragma unroll
+          for (int u = 0; u < kF4; ++u) s[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int pw = sp & 0xffff; pw <= sp >> 16; ++pw) {
+            const float wt = ax.wt[pw][j - ax.start[pw]];
+            smem_item(gp + pw * CS, gv);
+#pragma unroll
+            for (int u = 0; u < kF4; ++u) fma4(s[u], wt, gv[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kF4; ++u) hsum[row * kQ + v * kF4 + u] = s[u];
+        }
+      }
+      __syncthreads();  // H in place
+      if (hit) {
+        // Row pass: acc[y_i, x_j, q] += sum over the bins ph of tap i of Wy * H.
+        const int ni = ib - ia;
+        for (int item = tid; item < ni * nj * kV; item += kThreads) {
+          const int v = item % kV;
+          const int row = item / kV;
+          if (v >= nvi) continue;
+          const int di = __float2int_rz((static_cast<float>(row) + 0.5f) * inv_nj);
+          const int jl = row - di * nj;
+          const int i = ia + di;
+          const int sp = ay.span[i];
+          float4 s[kF4];
+#pragma unroll
+          for (int u = 0; u < kF4; ++u) s[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int ph = sp & 0xffff; ph <= sp >> 16; ++ph) {
+            const float wt = ay.wt[ph][i - ay.start[ph]];
+            const float4* hp = hsum + ((ph - ph_lo) * nj + jl) * kQ + v * kF4;
+#pragma unroll
+            for (int u = 0; u < kF4; ++u) fma4(s[u], wt, hp[u]);
+          }
+          float4* d = acc + ((ay.tap[i] - y0) * TX + ax.tap[ja + jl] - x0) * kQ + v * kF4;
+#pragma unroll
+          for (int u = 0; u < kF4; ++u) {
+            d[u].x += s[u].x;
+            d[u].y += s[u].y;
+            d[u].z += s[u].z;
+            d[u].w += s[u].w;
+          }
         }
       }
     }
-    first[a][i] = lo;
-    last[a][i] = hi;
   }
   __syncthreads();
 
-  const Axis<OUT>& ay = axes[0];
-  const Axis<OUT>& ax = axes[1];
-  const int ny = ay.count;
-  const int nx = ax.count;
-  for (int pass = 0; pass < kPasses; ++pass) {
-    const int c0 = c_begin + pass * CS;
-    if (c0 >= channels) break;
-    const int nc = min(CS, channels - c0);
-    // 2. Column pass: H[ph, j, c] = sum over the bins pw of tap j of Wx * g.
-    for (int item = tid; item < OUT * nx * CS; item += kThreads) {
-      const int c = item % CS;
-      const int row = item / CS;
-      const int ph = row / nx;
-      const int j = row - ph * nx;
-      if (c >= nc) continue;
-      float acc = 0.0f;
-      for (int pw = first[1][j]; pw <= last[1][j]; ++pw) {
-        acc = fmaf(ax.wt[pw][j - ax.start[pw]], to_float(g_r[(ph * OUT + pw) * channels + c0 + c]), acc);
-      }
-      hsum[(ph * kCand + j) * CS + c] = acc;
+  // 3. The tile, once: 16-byte vectors of the gradient's dtype.
+  constexpr int kVec = Vec<T>::kWidth;
+  constexpr int kVecs = CS / kVec;
+  const int nv = nc / kVec;
+  T* out = pick(pyr.grad, lv) + static_cast<size_t>(frame) * h * w * channels + c0;
+  for (int item = tid; item < TY * TX * kVecs; item += kThreads) {
+    const int v = item % kVecs;
+    const int p = item / kVecs;
+    const int y = y0 + p / TX;
+    const int x = x0 + p % TX;
+    if (v >= nv || y >= h || x >= w) continue;
+    float vals[kVec];
+#pragma unroll
+    for (int u = 0; u < kVec / 4; ++u) {
+      const float4 a4 = acc[p * kQ + v * (kVec / 4) + u];
+      vals[4 * u] = a4.x;
+      vals[4 * u + 1] = a4.y;
+      vals[4 * u + 2] = a4.z;
+      vals[4 * u + 3] = a4.w;
     }
-    __syncthreads();
-    // 3. Row pass: grad[y_i, x_j, c] += sum over the bins ph of tap i of Wy * H.
-    for (int item = tid; item < ny * nx * CS; item += kThreads) {
-      const int c = item % CS;
-      const int row = item / CS;
-      const int i = row / nx;
-      const int j = row - i * nx;
-      if (c >= nc) continue;
-      float acc = 0.0f;
-      for (int ph = first[0][i]; ph <= last[0][i]; ++ph) {
-        acc = fmaf(ay.wt[ph][i - ay.start[ph]], hsum[(ph * kCand + j) * CS + c], acc);
-      }
-      atomicAdd(level + ay.off[i] + ax.off[j] + c0 + c, acc);
-    }
-    __syncthreads();  // H is rewritten by the next slice
-  }
-}
-
-__global__ void cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, size_t n) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    dst[i] = __float2bfloat16_rn(src[i]);
+    *reinterpret_cast<uint4*>(out + (y * w + x) * channels + v * kVec) = Vec<T>::pack(vals);
   }
 }
 
 template <typename T, int OUT>
-cudaError_t launch_backward(const GradPyramid& pyr, const void* g, const float* rois, const int* levels,
-                            int num_rois, int rois_per_frame, int channels, cudaStream_t stream) {
+cudaError_t launch_backward(GradPyramid<T> pyr, const void* g, const float* rois, const int* levels, void* scratch,
+                            int num_frames, int num_rois, int rois_per_frame, int channels, cudaStream_t stream) {
   using Tl = BwdTile<OUT>;
-  constexpr size_t smem = static_cast<size_t>(OUT) * Axis<OUT>::kCand * Tl::kSlice * sizeof(float);
-  auto kernel = roi_align_backward_kernel<T, OUT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  auto* recs = static_cast<BwdRoi<OUT>*>(scratch);
+  auto* boxes = reinterpret_cast<int4*>(recs + num_rois);
+  roi_geometry_kernel<T, OUT><<<(num_rois + kGeomRois - 1) / kGeomRois, 64 * kGeomRois, 0, stream>>>(
+      pyr, rois, levels, num_rois, recs, boxes);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  int tiles = 0;
+  for (int l = 0; l < 4; ++l) {
+    pyr.tiles_x[l] = (pyr.w[l] + Tl::kCols - 1) / Tl::kCols;
+    tiles += (pyr.h[l] + Tl::kRows - 1) / Tl::kRows * pyr.tiles_x[l];
+    pyr.tile_end[l] = tiles;
   }
-  constexpr int kCtaChannels = Tl::kSlice * Tl::kPasses;
-  const int ctas_per_roi = (channels + kCtaChannels - 1) / kCtaChannels;
-  kernel<<<num_rois * ctas_per_roi, Tl::kThreads, smem, stream>>>(pyr, static_cast<const T*>(g), rois, levels,
-                                                                   rois_per_frame, channels, ctas_per_roi);
+  const int slices = (channels + Tl::kSlice - 1) / Tl::kSlice;
+  const long long ctas = static_cast<long long>(num_frames) * tiles * slices;
+  if (ctas == 0) return cudaSuccess;
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  constexpr size_t smem = backward_smem_bytes<T, OUT>();
+  // Opted into whatever the size: static and dynamic shared memory
+  // together may pass 48 KB where the dynamic part alone does not.
+  auto kernel = roi_align_backward_kernel<T, OUT>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<int>(ctas), Tl::kThreads, smem, stream>>>(pyr, static_cast<const T*>(g), levels, recs, boxes,
+                                                                   rois_per_frame, channels, slices);
   return cudaGetLastError();
+}
+
+template <typename T>
+int backward_entry(const void* g, const void* rois, const void* levels, void* scratch, void* const grads[4],
+                   const int hw[8], const float scales[4], int num_frames, int num_rois, int rois_per_frame,
+                   int channels, int output_size, cudaStream_t stream) {
+  GradPyramid<T> pyr = {};
+  for (int l = 0; l < 4; ++l) {
+    pyr.grad[l] = static_cast<T*>(grads[l]);
+    pyr.h[l] = hw[2 * l];
+    pyr.w[l] = hw[2 * l + 1];
+    pyr.scale[l] = scales[l];
+  }
+  const float* r = static_cast<const float*>(rois);
+  const int* lv = static_cast<const int*>(levels);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (output_size == 7) {
+    err = launch_backward<T, 7>(pyr, g, r, lv, scratch, num_frames, num_rois, rois_per_frame, channels, stream);
+  } else if (output_size == 14) {
+    err = launch_backward<T, 14>(pyr, g, r, lv, scratch, num_frames, num_rois, rois_per_frame, channels, stream);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -653,55 +976,49 @@ int sfvos_roi_align_forward(const void* f0, const void* f1, const void* f2, cons
   return static_cast<int>(err);
 }
 
+// Bytes of scratch the backward needs for `num_rois` rois at `output_size`
+// (7 or 14; -1 otherwise): one geometry record and one box per roi.
+long long sfvos_roi_align_backward_scratch_bytes(int output_size, int num_rois) {
+  if (num_rois < 0) return -1;
+  if (output_size == 7) return static_cast<long long>(backward_scratch_bytes<7>(num_rois));
+  if (output_size == 14) return static_cast<long long>(backward_scratch_bytes<14>(num_rois));
+  return -1;
+}
+
 // Backward (K5). Launches on `stream` and returns cudaGetLastError() (0 =
 // ok). g: [num_rois, OUT, OUT, C] of the feature dtype; rois, levels as in
-// the forward; grad0..3: the f32 gradient of each level [T, h_l, w_l, C],
-// zeroed by the caller, which this adds into. For bf16 features (is_bf16)
-// out0..3 are bf16 levels of the same shapes that get the f32 gradient
-// rounded once; for f32 features they are unused.
-int sfvos_roi_align_backward(const void* g, const void* rois, const void* levels, void* grad0, void* grad1,
-                             void* grad2, void* grad3, void* out0, void* out1, void* out2, void* out3, int h0,
+// the forward, num_rois = num_frames x rois_per_frame; scratch: at least
+// sfvos_roi_align_backward_scratch_bytes(OUT, num_rois) bytes; grad0..3:
+// the gradient of each level [num_frames, h_l, w_l, C] in g's dtype, which
+// this writes whole (no zeroing needed). g, scratch and the gradients are
+// 16-byte aligned; C is whole 16-byte vectors (a multiple of 8 in bf16, of
+// 4 in f32).
+int sfvos_roi_align_backward(const void* g, const void* rois, const void* levels, void* scratch,
+                             long long scratch_bytes, void* grad0, void* grad1, void* grad2, void* grad3, int h0,
                              int w0, int h1, int w1, int h2, int w2, int h3, int w3, float s0, float s1, float s2,
                              float s3, int num_frames, int num_rois, int rois_per_frame, int channels,
                              int output_size, int is_bf16, void* stream) {
-  GradPyramid pyr;
-  void* grads[4] = {grad0, grad1, grad2, grad3};
-  void* outs[4] = {out0, out1, out2, out3};
+  void* const grads[4] = {grad0, grad1, grad2, grad3};
   const int hw[8] = {h0, w0, h1, w1, h2, w2, h3, w3};
   const float scales[4] = {s0, s1, s2, s3};
+  const int vec = is_bf16 ? 8 : 4;
+  bool aligned = reinterpret_cast<uintptr_t>(g) % 16 == 0 && reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
   bool small = true;  // offsets within one frame's level are ints
   for (int l = 0; l < 4; ++l) {
-    pyr.grad[l] = static_cast<float*>(grads[l]);
-    pyr.h[l] = hw[2 * l];
-    pyr.w[l] = hw[2 * l + 1];
-    pyr.scale[l] = scales[l];
+    aligned = aligned && grads[l] != nullptr && reinterpret_cast<uintptr_t>(grads[l]) % 16 == 0;
     small = small && static_cast<long long>(hw[2 * l]) * hw[2 * l + 1] * channels <= INT_MAX;
-    if (grads[l] == nullptr || (is_bf16 && outs[l] == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_rois <= 0 || rois_per_frame <= 0 || channels <= 0 || num_frames <= 0 || !small) {
+  const long long need = sfvos_roi_align_backward_scratch_bytes(output_size, num_rois);
+  if (num_rois <= 0 || rois_per_frame <= 0 || num_frames <= 0 ||
+      static_cast<long long>(num_frames) * rois_per_frame != num_rois || channels <= 0 || channels % vec != 0 ||
+      !aligned || !small || need < 0 || scratch_bytes < need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* r = static_cast<const float*>(rois);
-  const int* lv = static_cast<const int*>(levels);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (output_size == 7) {
-    err = is_bf16 ? launch_backward<__nv_bfloat16, 7>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st)
-                  : launch_backward<float, 7>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st);
-  } else if (output_size == 14) {
-    err = is_bf16 ? launch_backward<__nv_bfloat16, 14>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st)
-                  : launch_backward<float, 14>(pyr, g, r, lv, num_rois, rois_per_frame, channels, st);
-  }
-  if (err != cudaSuccess || !is_bf16) return static_cast<int>(err);
-  for (int l = 0; l < 4; ++l) {
-    const size_t n = static_cast<size_t>(num_frames) * hw[2 * l] * hw[2 * l + 1] * channels;
-    const size_t want = (n + 255) / 256;
-    const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-    cast_to_bf16_kernel<<<blocks, 256, 0, st>>>(pyr.grad[l], static_cast<__nv_bfloat16*>(outs[l]), n);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return is_bf16 ? backward_entry<__nv_bfloat16>(g, rois, levels, scratch, grads, hw, scales, num_frames, num_rois,
+                                                 rois_per_frame, channels, output_size, st)
+                 : backward_entry<float>(g, rois, levels, scratch, grads, hw, scales, num_frames, num_rois,
+                                         rois_per_frame, channels, output_size, st);
 }
 
 const char* sfvos_cuda_error_string(int code) {

@@ -36,16 +36,22 @@ backward is the transpose of the same linear map:
 * on CUDA tensors `roi_align_backward_cuda` launches the second kernel of
   `csrc/roi_align.cu` (K5; it replaces the JAX package's custom VJP
   `roi_align_mm.py::_msra_mmgrad_bwd`, which XLA computes, there is no
-  Pallas kernel for it): per roi, the forward's own tap tables, f32 atomic
-  adds into a zeroed f32 gradient, one rounding to bf16 at the end for
-  bf16 features. Bound by bytes: g read once, the gradient pyramid written
-  once.
+  Pallas kernel for it): a small kernel builds each roi's tap tables with
+  the forward's own device function, then one CTA per (frame, level,
+  16x16-pixel tile, channel slice) walks the rois whose footprint meets
+  its tile, in ascending order, sums what they add there in f32 in shared
+  memory, and writes its tile once in the features' dtype. No atomics and
+  no f32 pyramid: every pixel sums its contributions in a fixed order, so
+  two calls agree bit for bit. Its bound is bytes (g read once, the
+  gradient pyramid written once); the serial walk of the tiles under many
+  rois sets its time (see the source's head note).
 * on CPU tensors `multiscale_roi_align_backward_plain`, a transcription of
   `_msra_mmgrad_bwd`: per level and frame, A_y^T . g . A_x over the rois
   assigned there, as dense matmuls.
 
 FPN levels are assigned in PyTorch (`fpn_level_assignment`) for both
-paths, so kernel and plain version pool every roi at the same level.
+paths, so kernel and plain version pool every roi at the same level; on
+CUDA the backward takes the levels its forward computed.
 """
 from __future__ import annotations
 
@@ -312,9 +318,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.sfvos_roi_align_forward
     fn.argtypes = [vp] * 4 + [ci] * 8 + [cf] * 4 + [vp, vp] + [ci] * 5 + [vp, vp]
     fn.restype = ci
-    if hasattr(lib, "sfvos_roi_align_backward"):  # older builds have the forward only
+    if hasattr(lib, "sfvos_roi_align_backward_scratch_bytes"):  # older builds have another backward or none
+        lib.sfvos_roi_align_backward_scratch_bytes.argtypes = [ci, ci]
+        lib.sfvos_roi_align_backward_scratch_bytes.restype = ctypes.c_longlong
         bwd = lib.sfvos_roi_align_backward
-        bwd.argtypes = [vp] * 11 + [ci] * 8 + [cf] * 4 + [ci] * 6 + [vp]
+        bwd.argtypes = [vp] * 4 + [ctypes.c_longlong] + [vp] * 4 + [ci] * 8 + [cf] * 4 + [ci] * 6 + [vp]
         bwd.restype = ci
     lib.sfvos_cuda_error_string.argtypes = [ci]
     lib.sfvos_cuda_error_string.restype = ctypes.c_char_p
@@ -400,33 +408,58 @@ def roi_align_backward_cuda(
         raise ValueError(f"g must be a contiguous [T={t}, N={n}, {output_size}, {output_size}, C] tensor, got {tuple(g.shape)}")
     if g.device != rois.device:
         raise ValueError("g and rois must share one device")
+    c = g.shape[-1]
+    vec = 16 // g.element_size()
+    if c % vec:
+        raise ValueError(f"the backward kernel stores 16-byte channel vectors: C must be a multiple of {vec} in {g.dtype}, got {c}")
+    if g.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned")
+    for h, w in level_hws:
+        if h * w * c > 2**31 - 1:
+            raise ValueError("the kernel indexes one frame's level with 32-bit offsets")
     if levels is None:
         levels = fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+    return launch_backward(g, rois, levels, level_hws, spatial_scales, output_size)
+
+
+def launch_backward(
+    g: torch.Tensor,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    level_hws: Sequence[tuple[int, int]],
+    spatial_scales: Sequence[float],
+    output_size: int,
+    lib: ctypes.CDLL | None = None,
+) -> list[torch.Tensor]:
+    """The backward launch itself, on inputs `roi_align_backward_cuda`
+    accepted, through `lib` (a `bind`-declared build; default: this
+    checkout's). The kernel writes every element of the gradient once, so
+    the levels are allocated uninitialized; its per-roi tables go to a
+    scratch buffer of a few KB a roi. Raises unless `levels` is a
+    contiguous int32 [T*N] tensor on the rois' device."""
+    t, n = rois.shape[:2]
     if (levels.dtype != torch.int32 or levels.dim() != 1 or levels.numel() != t * n
             or not levels.is_contiguous() or levels.device != rois.device):
         raise ValueError(f"levels must be a contiguous int32 [T*N={t * n}] tensor on {rois.device}")
     c = g.shape[-1]
-    for h, w in level_hws:
-        if h * w * c > 2**31 - 1:
-            raise ValueError("the kernel indexes one frame's level with 32-bit offsets")
-    grads = [torch.zeros((t, h, w, c), dtype=torch.float32, device=rois.device) for h, w in level_hws]
-    bf16 = g.dtype == torch.bfloat16
-    outs = [torch.empty((t, h, w, c), dtype=torch.bfloat16, device=rois.device) for h, w in level_hws] if bf16 else None
+    grads = [torch.empty((t, h, w, c), dtype=g.dtype, device=rois.device) for h, w in level_hws]
     if t * n == 0:
-        return [o.zero_() for o in outs] if bf16 else grads
-    lib = _library()
+        return [x.zero_() for x in grads]
+    lib = lib or _library()
+    scratch_bytes = lib.sfvos_roi_align_backward_scratch_bytes(output_size, t * n)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=rois.device)
     hw = [d for h, w in level_hws for d in (h, w)]
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sfvos_roi_align_backward(
-            g.data_ptr(), rois.data_ptr(), levels.data_ptr(), *[x.data_ptr() for x in grads],
-            *([x.data_ptr() for x in outs] if bf16 else [None] * 4), *hw, *[float(s) for s in spatial_scales],
-            t, t * n, n, c, output_size, int(bf16), stream,
+            g.data_ptr(), rois.data_ptr(), levels.data_ptr(), scratch.data_ptr(), scratch_bytes,
+            *[x.data_ptr() for x in grads], *hw, *[float(s) for s in spatial_scales],
+            t, t * n, n, c, output_size, int(g.dtype == torch.bfloat16), stream,
         )
     if rc != 0:
         raise RuntimeError(f"roi_align backward kernel launch failed: {lib.sfvos_cuda_error_string(rc).decode()}")
     launches["backward", output_size] += 1
-    return outs if bf16 else grads
+    return grads
 
 
 class _Pool(torch.autograd.Function):
@@ -437,20 +470,27 @@ class _Pool(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rois, spatial_scales, output_size, sampling_ratio, *feats):
-        pool = roi_align_cuda if rois.device.type == "cuda" else multiscale_roi_align_plain
-        out = pool(feats, rois, spatial_scales, output_size=output_size, sampling_ratio=sampling_ratio)
-        ctx.save_for_backward(rois)
+        if rois.device.type == "cuda":
+            _check_cuda_inputs(feats, rois, spatial_scales, output_size, sampling_ratio)
+            levels = fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
+            out = launch_kernel(feats, rois, levels, spatial_scales, output_size)
+        else:
+            levels = None
+            out = multiscale_roi_align_plain(feats, rois, spatial_scales, output_size=output_size,
+                                             sampling_ratio=sampling_ratio)
+        ctx.save_for_backward(rois, levels)
         ctx.geometry = ([tuple(f.shape[1:3]) for f in feats], tuple(spatial_scales), output_size, sampling_ratio)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        (rois,) = ctx.saved_tensors
+        rois, levels = ctx.saved_tensors
         hws, scales, output_size, sampling_ratio = ctx.geometry
         g = g.contiguous()
         if rois.device.type == "cuda":
-            grads = roi_align_backward_cuda(g, rois, hws, scales, output_size=output_size)
+            # The forward's levels: a roi is differentiated where it was pooled.
+            grads = roi_align_backward_cuda(g, rois, hws, scales, output_size=output_size, levels=levels)
         else:
             grads = multiscale_roi_align_backward_plain(
                 g, rois, hws, scales, output_size=output_size, sampling_ratio=sampling_ratio

@@ -400,6 +400,15 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
         pra.roi_align_backward_cuda(g, rois.double(), hws)
     with pytest.raises(ValueError, match="4 FPN levels"):
         pra.roi_align_backward_cuda(g, rois, hws[:3], SCALES[:3])
+    # The tile is stored as 16-byte channel vectors: C a multiple of 4 in
+    # f32, of 8 in bf16 (g here has 8 channels), and g 16-byte aligned.
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pra.roi_align_backward_cuda(g[..., :6].contiguous(), rois, hws)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pra.roi_align_backward_cuda(g[..., :4].contiguous().bfloat16(), rois, hws)
+    shifted = torch.empty(g.numel() + 1)[1:].view(g.shape).copy_(g)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pra.roi_align_backward_cuda(shifted, rois, hws)
     levels = pra.fpn_level_assignment(rois.reshape(-1, 4)).contiguous()
     for bad in (levels.long(), levels[:-1]):
         with pytest.raises(ValueError, match="levels must be"):

@@ -36,6 +36,20 @@ def edge_case_batch(rng, frames, c):
     return feats, rois.astype(np.float32)
 
 
+def clustered_batch(rng, frames, c, n=200):
+    """Pyramid [frames, H_l, W_l, c] of the 1024x1152 canvas and rois
+    [frames, n + 1 + the edge cases, 4], as numpy f32: n rois jittered
+    around one object (a tile under it walks nearly all of them), the
+    whole-level P5 roi (it meets every P5 tile) and the edge cases."""
+    ch, cw = EDGE_CANVAS
+    feats = [rng.normal(size=(frames, ch // s, cw // s, c)).astype(np.float32) for s in (4, 8, 16, 32)]
+    obj = np.array([400.0, 300.0, 560.0, 520.0])
+    jitter = obj + rng.normal(0, 1, (frames, n, 4)) * np.array([24.0, 30.0, 24.0, 30.0]) * rng.uniform(0.2, 2, (frames, n, 1))
+    whole = np.broadcast_to(np.array([0.0, 0.0, cw, ch]), (frames, 1, 4))
+    rois = np.concatenate([jitter, whole, np.broadcast_to(EDGE_ROIS, (frames, *EDGE_ROIS.shape))], 1)
+    return feats, rois.astype(np.float32)
+
+
 def boundary_rois():
     """Square rois [0, 0, a, a] whose level flips when sqrt(area) / 224 is
     taken as a multiply by float32(1/224) instead of a division: float32
