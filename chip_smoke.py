@@ -33,11 +33,26 @@ Phases, each fatal on failure:
              [2, 128] rois), per pixel against the plain backward, and
              bitwise equal over two calls on the train path's rois;
 5. reference - a small f32 input through the same entry point on the card
-             and on the CPU (the plain versions), compared; and one tiny f32
-             train step on both, same weights and draws;
+             and on the CPU (the plain versions), compared; and tiny f32
+             train steps on both, same weights and draws: the default
+             freeze, OSVOS's SF (the backbone trains) and the pretrain
+             Mask R-CNN (no SlowFast, trainable_backbone_layers 3);
 6. timings - each kernel on both roi sets, with and without the level
              assignment, against its bound and its plain version (the
-             forward also against its per-roi footprint).
+             forward also against its per-roi footprint);
+7. drivers - the three drivers at full width (480x854, bf16, default
+             DetectionConfig, seeded weights) on synthetic DAVIS trees
+             written at run time (2017 train: 2 sequences x 8 frames, 2
+             objects; 2016 val: 1 sequence x 16 frames, two superchunks):
+             `train_unsupervised` for 2 epochs of 3 windows with its
+             evaluation before and after each, then resumed for a third;
+             the checkpoint restored bit for bit; evaluation frames/s with
+             and without PNG writing and scoring; the ground truth as a
+             prediction scoring J&F 1.0; `train_osvos_sequence` under SF
+             (4 items, 2 updates); `train_maskrcnn` (3 steps of 2 frames)
+             and `extract_rpn_proposals`. Launch counts of both kernels at
+             both pools are read around each driver; ms/step, wall seconds
+             and peak device memory are printed.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -48,6 +63,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -61,6 +77,7 @@ CANVAS = (768, 1344)  # 480x854 resized to 749x1333, padded to /64
 LEVEL_HWS = [(CANVAS[0] // s, CANVAS[1] // s) for s in (4, 8, 16, 32)]
 SC = 8
 TRAIN_STEPS = 8
+DRIVER_HW = (480, 854)  # DAVIS 480p
 GRAD_SHARE = 1e-3  # tests/test_torch_train.py's gradient tolerance
 
 
@@ -324,11 +341,11 @@ def phase_reference(pipeline_mod) -> None:
     check(box_err <= 0.05 and score_err <= 1e-4 and mask_diff <= 0.01, "card output differs from the CPU")
 
 
-def training_window(data, hw, frames, max_gt, index):
+def training_window(data, hw, frames, max_gt, index, fast=3, n_center=2):
     """Window `index` of `train_windows` over a seeded moving-blobs sequence
     (2 objects, masks and boxes per frame)."""
     images, ids = data.draw_sequence(np.random.default_rng(7), frames, *hw, 2)
-    windows = list(data.train_windows(data.sequence_arrays(images, ids, max_gt), fast=3))
+    windows = list(data.train_windows(data.sequence_arrays(images, ids, max_gt), fast=fast, n_center=n_center))
     return windows[index], images
 
 
@@ -464,51 +481,243 @@ def relu_branches(masks: list, replay: bool):
     check(not replay or next(it, None) is None, "the replayed step called ReLU fewer times than the recorded one")
 
 
+# Phase 5's tiny train steps: (name, build_pipeline arguments, Trainer
+# arguments).
+TRAIN_REFERENCES = (
+    ("default 3-3", dict(slow=3, fast=3), dict()),
+    ("OSVOS SF 3-3 (backbone trains, SlowFast frozen, 1 centre frame)", dict(slow=3, fast=3),
+     dict(n_center=1, train_backbone=True, train_slow_fast=False)),
+    ("pretrain Mask R-CNN (no SlowFast, fast 1, trainable_backbone_layers 3)", dict(slow=1, fast=1, use_slow_fast=False),
+     dict(train_backbone=True, trainable_backbone_layers=3)),
+)
+
+
 def phase_train_reference(pipeline_mod, train_mod, data, cfg_mod) -> None:
-    """One tiny f32 train step (tests/test_torch_train.py's shape: 60x100,
-    min 64, max 128, 3-3, TINY_CFG) on the card (kernels) and on the CPU
-    (plain versions), same seeded weights and draws; the CPU step replays
-    the card step's ReLU branches. Losses to rel 1e-4, every trainable
-    gradient to max-abs 1e-3 x its max |grad| (conv biases before a
-    train-mode BatchNorm, whose gradient is zero, to 1e-5 of the SlowFast
-    gradients)."""
+    """Tiny f32 train steps (tests/test_torch_train.py's shape: 60x100, min
+    64, max 128, TINY_CFG) on the card (kernels) and on the CPU (plain
+    versions), same seeded weights and draws; the CPU step replays the card
+    step's ReLU branches. One step per set-up of `TRAIN_REFERENCES`: the
+    default freeze, OSVOS's `SF` (the backbone trains) and the pretrain
+    model. Losses to rel 1e-4, every trainable gradient to max-abs 1e-3 x
+    its max |grad| (conv biases before a train-mode BatchNorm, whose
+    gradient is zero, to 1e-5 of the SlowFast gradients)."""
     cfg = cfg_mod.DetectionConfig(
         rpn_pre_nms_top_n_train=64, rpn_post_nms_top_n_train=32, rpn_pre_nms_top_n_test=64,
         rpn_post_nms_top_n_test=32, box_batch_size_per_image=32, mask_train_rois=8, detections_per_img=5, max_gt=3,
     )
-    batch, _ = training_window(data, (60, 100), 6, cfg.max_gt, index=0)
-    masks, out = [], {}
-    for run, device in enumerate(("cuda", "cpu")):
-        pipe, model = pipeline_mod.build_pipeline(
-            3, 3, (60, 100), min_size=64, max_size=128, cfg=cfg, dtype=torch.float32, device=device, superchunk=4
+    for name, build_kw, trainer_kw in TRAIN_REFERENCES:
+        n = trainer_kw.get("n_center", 2)
+        batch, _ = training_window(data, (60, 100), 6, cfg.max_gt, index=0, fast=build_kw["fast"], n_center=n)
+        masks, out = [], {}
+        for run, device in enumerate(("cuda", "cpu")):
+            pipe, model = pipeline_mod.build_pipeline(
+                original_hw=(60, 100), min_size=64, max_size=128, cfg=cfg, dtype=torch.float32, device=device,
+                superchunk=4, **build_kw,
+            )
+            pipeline_mod.init_weights(model, seed=0)
+            trainer = train_mod.Trainer(pipe, **trainer_kw)
+            if run == 0:  # the samplers' draws, made once on the CPU
+                gen = torch.Generator().manual_seed(0)
+                a, b = trainer.num_anchors, cfg.rpn_post_nms_top_n_train + cfg.max_gt
+                draws = {k: torch.rand((n, m), generator=gen) for k, m in
+                         (("rpn_pos", a), ("rpn_neg", a), ("box_pos", b), ("box_neg", b))}
+            model.train()
+            with relu_branches(masks, replay=run == 1):
+                total, metrics = trainer.loss(batch, {k: v.to(device) for k, v in draws.items()})
+                total.backward()
+            model.eval()
+            out[run] = ({k: float(v) for k, v in metrics.items()}, {k: p.grad.cpu() for k, p in trainer.params.items()})
+        (gm, gg), (cm, cg) = out[0], out[1]
+        loss_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-12) for k in cm)
+        sf = [float(v.abs().max()) for k, v in cg.items() if k.startswith("slow_fast.")]
+        share, zero_share = 0.0, 0.0
+        for k in cg:
+            diff = float((gg[k] - cg[k]).abs().max())
+            if k.startswith("slow_fast.") and "conv" in k and k.endswith(".bias"):
+                zero_share = max(zero_share, max(float(gg[k].abs().max()), float(cg[k].abs().max())) / (1e-5 * max(sf)))
+            else:
+                share = max(share, diff / max(GRAD_SHARE * float(cg[k].abs().max()), 1e-30))
+        log(f"reference: tiny f32 train step, {name}, card vs CPU: losses max rel err {loss_err:.3e} (tol 1e-4), "
+            f"{len(cg)} trainable tensors, gradients at {share:.3f} of their tolerance, zero-gradient biases at "
+            f"{zero_share:.3f}; {len(masks)} ReLU calls replayed; loss {gm['loss']:.6f} (card) {cm['loss']:.6f} (CPU)")
+        check(loss_err <= 1e-4 and share <= 1.0 and zero_share <= 1.0, f"the card's train step ({name}) differs from the CPU's")
+
+
+@contextlib.contextmanager
+def timed_steps(train_mod):
+    """Within the block, every `Trainer.step` is synchronized and timed; the
+    list it yields gets each step's milliseconds."""
+    times, step = [], train_mod.Trainer.step
+
+    def timed(self, batch, draws=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(self, batch, draws)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    train_mod.Trainer.step = timed
+    try:
+        yield times
+    finally:
+        train_mod.Trainer.step = step
+
+
+@contextlib.contextmanager
+def launches_of(ra, counts: dict, name: str):
+    """Launch counts of K1 and K5 at both pools over the block, kept under
+    `name` and checked above zero."""
+    keys = (7, 14, ("backward", 7), ("backward", 14))
+    ra.launches.clear()
+    yield
+    counts[name] = {k: ra.launches[k] for k in keys}
+    log(f"drivers: {name}: launches pool7 {counts[name][7]}, pool14 {counts[name][14]}, backward pool7 "
+        f"{counts[name]['backward', 7]}, backward pool14 {counts[name]['backward', 14]}")
+    check(all(v > 0 for v in counts[name].values()), f"{name} bypassed a kernel: {counts[name]}")
+
+
+def phase_drivers(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
+    """The three drivers at full width (480x854, bf16, default
+    DetectionConfig, seeded weights) on synthetic DAVIS trees: unsupervised
+    training with its evaluation each epoch and a resume, an OSVOS
+    fine-tune under `SF`, the Mask R-CNN fine-tune and its proposal dump.
+    Returns the launch counts and timings."""
+    from slowfast_vos_tpu_torch.data.davis import DavisIndex, load_sequence
+    from slowfast_vos_tpu_torch.eval import glue, scorer
+    from slowfast_vos_tpu_torch.train import osvos, pretrain, trainer as unsupervised
+    from slowfast_vos_tpu_torch.utils import checkpoint
+
+    hw = DRIVER_HW
+    train_root, eval_root = str(workdir / "train17"), str(workdir / "eval16")
+    t0 = time.perf_counter()
+    data.make_synthetic_davis(train_root, num_sequences=2, frames=8, hw=hw, num_objects=2)
+    data.make_synthetic_davis(eval_root, num_sequences=1, frames=16, hw=hw, num_objects=1, year="2016", subset="val", seed=7)
+    log(f"drivers: wrote a 2017 train tree (2 x 8 frames, 2 objects) and a 2016 val tree (1 x 16 frames) at {hw} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    out, counts = {}, {}
+    pipe, model = pipeline_mod.build_pipeline(3, 3, hw, dtype=torch.bfloat16, device="cuda", superchunk=SC)
+    torch.cuda.reset_peak_memory_stats()
+
+    # Unsupervised training, 2 epochs of 3 windows, evaluated before and after each.
+    run_dir = str(workdir / "unsupervised")
+    with launches_of(ra, counts, "train_unsupervised"), timed_steps(train_mod) as step_ms:
+        t0 = time.perf_counter()
+        trainer, history = unsupervised.train_unsupervised(
+            pipe, train_root=train_root, eval_root=eval_root, output_dir=run_dir, epochs=2, max_windows_per_epoch=3, seed=0,
         )
-        pipeline_mod.init_weights(model, seed=0)
-        trainer = train_mod.Trainer(pipe)
-        if run == 0:  # the samplers' draws, made once on the CPU
-            gen = torch.Generator().manual_seed(0)
-            a, b = trainer.num_anchors, cfg.rpn_post_nms_top_n_train + cfg.max_gt
-            draws = {k: torch.rand((2, m), generator=gen) for k, m in
-                     (("rpn_pos", a), ("rpn_neg", a), ("box_pos", b), ("box_neg", b))}
-        model.train()
-        with relu_branches(masks, replay=run == 1):
-            total, metrics = trainer.loss(batch, {k: v.to(device) for k, v in draws.items()})
-            total.backward()
-        model.eval()
-        out[run] = ({k: float(v) for k, v in metrics.items()}, {k: p.grad.cpu() for k, p in trainer.params.items()})
-    (gm, gg), (cm, cg) = out[0], out[1]
-    loss_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-12) for k in cm)
-    sf_scale = max(float(v.abs().max()) for k, v in cg.items() if k.startswith("slow_fast."))
-    share, zero_share = 0.0, 0.0
-    for k in cg:
-        diff = float((gg[k] - cg[k]).abs().max())
-        if k.startswith("slow_fast.") and "conv" in k and k.endswith(".bias"):
-            zero_share = max(zero_share, max(float(gg[k].abs().max()), float(cg[k].abs().max())) / (1e-5 * sf_scale))
-        else:
-            share = max(share, diff / (GRAD_SHARE * float(cg[k].abs().max())))
-    log(f"reference: tiny f32 train step card vs CPU: losses max rel err {loss_err:.3e} (tol 1e-4), "
-        f"gradients at {share:.3f} of their tolerance, zero-gradient biases at {zero_share:.3f}; "
-        f"{len(masks)} ReLU calls replayed; loss {gm['loss']:.6f} (card) {cm['loss']:.6f} (CPU)")
-    check(loss_err <= 1e-4 and share <= 1.0 and zero_share <= 1.0, "the card's train step differs from the CPU's")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check([h["epoch"] for h in history] == [0, 1], f"history epochs {[h['epoch'] for h in history]}")
+    for h in history:
+        check(sorted(h) == ["epoch", "eval", "loss"] and np.isfinite(h["loss"]), f"history entry {h}")
+        check(sorted(h["eval"]) == sorted(["jf", "wall", "J&F-Mean", "J-Mean", "J-Recall", "J-Decay", "F-Mean",
+                                           "F-Recall", "F-Decay"]) and 0.0 <= h["eval"]["jf"] <= 1.0, f"eval {h['eval']}")
+    res = Path(run_dir) / "results" / "unsupervised" / "slowfast_3-3" / "synth00"
+    check(sorted(p.name for p in res.iterdir()) == [f"{i:05d}.png" for i in range(16)], "the results tree lacks a frame")
+    out["unsupervised"] = {"wall_s": wall, "steps": len(step_ms), "median_step_ms": statistics.median(step_ms[1:])}
+    log(f"drivers: train_unsupervised 2 epochs x 3 windows + 3 evaluations: {wall:.2f} s wall, {len(step_ms)} steps, "
+        f"median {out['unsupervised']['median_step_ms']:.1f} ms/step (steps {', '.join(f'{t:.0f}' for t in step_ms)} ms); "
+        f"losses {[round(h['loss'], 4) for h in history]}, J&F {[round(h['eval']['jf'], 4) for h in history]}")
+
+    with timed_steps(train_mod) as resume_ms:
+        trainer, resumed = unsupervised.train_unsupervised(
+            pipe, train_root=train_root, eval_root=eval_root, output_dir=run_dir, epochs=3, max_windows_per_epoch=3,
+            seed=0, continue_training=True,
+        )
+    check([h["epoch"] for h in resumed] == [2] and len(resume_ms) == 3, f"resume ran epochs {[h['epoch'] for h in resumed]}")
+    fresh_pipe, _ = pipeline_mod.build_pipeline(3, 3, hw, dtype=torch.bfloat16, device="cuda", superchunk=SC)
+    fresh = train_mod.Trainer(fresh_pipe)
+    meta = checkpoint.restore_checkpoint(str(Path(run_dir) / "ckpt_last.pt"), fresh)
+    same = all(torch.equal(v, w) for v, w in zip(trainer.model.state_dict().values(), fresh.model.state_dict().values()))
+    same &= all(torch.equal(trainer.optimizer.state[p]["momentum_buffer"], fresh.optimizer.state[fresh.params[k]]["momentum_buffer"])
+                for k, p in trainer.params.items())
+    check(same and meta == {"epoch": 2} and fresh.calls == 9, "ckpt_last does not restore bit for bit")
+    log(f"drivers: continue_training ran epoch 2 only ({len(resume_ms)} steps); ckpt_last restores weights and "
+        f"{len(trainer.params)} momentum buffers bit for bit, meta {meta}")
+    del fresh, fresh_pipe
+
+    # Evaluation frames/s: inference alone, and with PNG writing and scoring.
+    info = DavisIndex(eval_root, "val", year="2016").sequences[0]
+    images = load_sequence(info)["images"]
+    infer_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = pipe.infer_sequence(images)
+        infer_s.append(time.perf_counter() - t0)
+    eval_s = []
+    for _ in range(3):
+        jf, *_, wall = glue.davis_evaluation(pipe, davis_root=eval_root, results_root=str(workdir / "eval"), model_name="m", year="2016")
+        eval_s.append(wall)
+    out["evaluation"] = {"frames": len(images), "infer_fps": len(images) / statistics.median(infer_s),
+                         "eval_fps": len(images) / statistics.median(eval_s)}
+    log(f"drivers: evaluation of 16 frames at {hw}: infer_sequence {out['evaluation']['infer_fps']:.2f} frames/s, "
+        f"with PNG writing and scoring (davis_evaluation) {out['evaluation']['eval_fps']:.2f} frames/s (medians of 3)")
+
+    # Ground truth as prediction scores J&F 1.0.
+    gt_dets = [{"union_mask": np.array(m.any(0))} for m in load_sequence(info)["masks"]]
+    glue._write_sequence_masks(str(workdir / "gt"), info.name, gt_dets, "2016", 0.5, None)
+    summary = scorer.summarize(scorer.DavisScorer(eval_root, task="unsupervised", gt_set="val", year="2016").evaluate(str(workdir / "gt")))
+    check(summary["J&F-Mean"] == 1.0, f"ground truth as prediction scores {summary}")
+    log(f"drivers: ground truth as prediction scores J&F {summary['J&F-Mean']}")
+
+    # OSVOS under SF from the trained weights, 4 items (2 optimizer steps).
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with launches_of(ra, counts, "train_osvos_sequence"), timed_steps(train_mod) as step_ms:
+        t0 = time.perf_counter()
+        results = osvos.train_osvos_sequence(
+            pipe, start, davis_root=eval_root, sequence_name="synth00", results_root=str(workdir / "osvos"),
+            cfg=osvos.ExperimentConfig(freeze="SF", epochs=1), items_per_epoch=4,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(sorted(results) == [-1, 0] and all(sorted(r) == ["eval_time", "fmean", "jfmean", "jmean"] for r in results.values()),
+          f"OSVOS results {results}")
+    after = model.state_dict()
+    params = dict(model.named_parameters())
+    check(all(torch.equal(after[k], start[k]) for k in params if k.startswith("slow_fast.")), "SF moved a SlowFast weight")
+    check(not torch.equal(after["backbone.body.layer4.2.conv3.weight"], start["backbone.body.layer4.2.conv3.weight"]),
+          "SF left the backbone unchanged")
+    out["osvos"] = {"wall_s": wall, "steps": len(step_ms), "median_step_ms": statistics.median(step_ms)}
+    log(f"drivers: train_osvos_sequence SF, 4 items (2 updates) + 2 evaluations: {wall:.2f} s wall, median "
+        f"{out['osvos']['median_step_ms']:.1f} ms/step (steps {', '.join(f'{t:.0f}' for t in step_ms)} ms); "
+        f"J&F {results[-1]['jfmean']:.4f} -> {results[0]['jfmean']:.4f}; SlowFast weights bit-identical, backbone moved")
+    del start, trainer, pipe, model
+
+    # The Mask R-CNN fine-tune, 3 steps of 2 frames, and its proposal dump.
+    ppipe, pmodel = pretrain.build_maskrcnn_pipeline(hw, dtype=torch.bfloat16, device="cuda", superchunk=SC)
+    pipeline_mod.init_weights(pmodel, seed=0)
+    start = {k: v.detach().clone() for k, v in pmodel.state_dict().items()}
+    with launches_of(ra, counts, "train_maskrcnn"), timed_steps(train_mod) as step_ms:
+        t0 = time.perf_counter()
+        _, history = pretrain.train_maskrcnn(
+            ppipe, davis_root=train_root, output_dir=str(workdir / "pretrain"), epochs=1, max_steps_per_epoch=3,
+            batch_size=2, state_dict=start,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(len(history) == 1 and sorted(history[0]) == ["epoch", "loss"] and np.isfinite(history[0]["loss"]), f"pretrain {history}")
+    after = pmodel.state_dict()
+    frozen = [k for k in after if k.startswith(("backbone.body.conv1.", "backbone.body.layer1."))]
+    check(all(torch.equal(after[k], start[k]) for k in frozen), "pretrain moved conv1 or layer1")
+    check(not torch.equal(after["backbone.body.layer2.0.conv1.weight"], start["backbone.body.layer2.0.conv1.weight"]),
+          "pretrain left layer2 unchanged")
+    out["pretrain"] = {"wall_s": wall, "steps": len(step_ms), "median_step_ms": statistics.median(step_ms)}
+    log(f"drivers: train_maskrcnn 3 steps x 2 frames: {wall:.2f} s wall, median {out['pretrain']['median_step_ms']:.1f} "
+        f"ms/step (steps {', '.join(f'{t:.0f}' for t in step_ms)} ms), loss {history[0]['loss']:.4f}; "
+        f"conv1 and layer1 bit-identical")
+    t0 = time.perf_counter()
+    npz = np.load(pretrain.extract_rpn_proposals(ppipe, davis_root=eval_root, output_path=str(workdir / "props.npz"),
+                                                 subset="val", year="2016"))
+    props, valid = npz["synth00/proposals"], npz["synth00/valid"]
+    n_props = ppipe.cfg.rpn_post_nms_top_n_test
+    check(props.shape == (16, n_props, 4) and valid.shape == (16, n_props) and np.isfinite(props).all(), "proposal dump")
+    log(f"drivers: extract_rpn_proposals 16 frames in {time.perf_counter() - t0:.2f} s, {int(valid.sum())} valid proposals")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"drivers: peak device memory {out['peak_gib']:.2f} GiB")
+    out["counts"] = counts
+    return out
 
 
 def backward_bound(ra, g, rois, out_size) -> tuple[float, str]:
@@ -651,8 +860,15 @@ def main() -> int:
     for r, out_size in zip(records, (7, 14)):
         r["train_launches"] = train["counts"][out_size]
     records += backward_timings(ra, bwd_errs, train["counts"], train_rois)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_", dir=cuda_build.BUILD_DIR) as workdir:
+        drivers = phase_drivers(ra, pipeline_mod, train_mod, data, Path(workdir))
+    for r in records:
+        size = 7 if r["name"].endswith("pool7") else 14
+        key = ("backward", size) if "backward" in r["name"] else size
+        r["drivers_launches"] = {name: c[key] for name, c in drivers["counts"].items()}
 
     log(json.dumps({"train_step": {k: train[k] for k in ("step_ms", "step_times_ms", "peak_gib")}}))
+    log(json.dumps({"drivers": {k: v for k, v in drivers.items() if k != "counts"}}))
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

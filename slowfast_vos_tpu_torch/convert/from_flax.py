@@ -107,7 +107,8 @@ def state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
     sd["roi_heads.mask_predictor.mask_fcn_logits.weight"] = _conv(mask["mask_fcn_logits"]["kernel"])
     sd["roi_heads.mask_predictor.mask_fcn_logits.bias"] = mask["mask_fcn_logits"]["bias"]
 
-    sd.update(slow_fast_state_dict(p["slow_fast"], stats["slow_fast"], prefix="slow_fast."))
+    if "slow_fast" in p:  # absent in the plain Mask R-CNN (use_slow_fast=False)
+        sd.update(slow_fast_state_dict(p["slow_fast"], stats["slow_fast"], prefix="slow_fast."))
     return _to_torch(sd)
 
 

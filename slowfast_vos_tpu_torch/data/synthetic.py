@@ -1,14 +1,20 @@
-"""Synthetic sequences with moving blobs, host numpy.
+"""Synthetic DAVIS data: moving blobs on a textured background, host numpy.
 
-The port's copy of the JAX package's generator
-(`slowfast_vos_tpu/data/synthetic.py::_draw_sequence`) and of its per-frame
-annotation decode (`data/davis.py::decode_frame_annotation`, boxes from
-mask extents), without the DAVIS file tree: `sequence_arrays` gives the
-fixed-shape sequence dict that `train_windows` slices.
+The port's copy of `slowfast_vos_tpu/data/synthetic.py`. Real DAVIS data is
+not shipped with the repo; `make_synthetic_davis` writes small but
+structurally faithful DAVIS trees (JPEGImages, palette-PNG Annotations,
+ImageSets in the 2016 and 2017 layouts), and `sequence_arrays` gives the
+fixed-shape sequence dict of `data/davis.py::load_sequence` without a file
+tree, through the same per-frame annotation decode.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
+from PIL import Image
+
+from slowfast_vos_tpu_torch.data.davis import annotation_from_ids, save_palette_mask
 
 
 def draw_sequence(rng: np.random.Generator, t: int, h: int, w: int, num_objects: int):
@@ -38,35 +44,10 @@ def draw_sequence(rng: np.random.Generator, t: int, h: int, w: int, num_objects:
     return images, id_masks
 
 
-def frame_annotation(id_mask: np.ndarray, max_gt: int):
-    """One frame's id mask -> (boxes [max_gt, 4] f32 XYXY from mask extents,
-    masks [max_gt, h, w] uint8, valid [max_gt]); objects in id order,
-    degenerate extents dropped."""
-    h, w = id_mask.shape
-    boxes = np.zeros((max_gt, 4), np.float32)
-    masks = np.zeros((max_gt, h, w), np.uint8)
-    valid = np.zeros((max_gt,), bool)
-    slot = 0
-    for oid in np.unique(id_mask):
-        if oid == 0:
-            continue
-        if slot >= max_gt:
-            break
-        bin_mask = id_mask == oid
-        ys, xs = np.where(bin_mask)
-        x1, x2, y1, y2 = xs.min(), xs.max(), ys.min(), ys.max()
-        if x1 < x2 and y1 < y2:
-            boxes[slot] = [x1, y1, x2, y2]
-            masks[slot] = bin_mask
-            valid[slot] = True
-            slot += 1
-    return boxes, masks, valid
-
-
 def sequence_arrays(images: np.ndarray, id_masks: np.ndarray, max_gt: int = 8) -> dict:
     """Fixed-shape sequence dict (`data/davis.py::load_sequence`): images,
     boxes [T, G, 4], masks [T, G, H, W], gt_valid [T, G], frame_valid [T]."""
-    ann = [frame_annotation(m, max_gt) for m in id_masks]
+    ann = [annotation_from_ids(m, max_gt) for m in id_masks]
     valid = np.stack([a[2] for a in ann])
     return {
         "images": images,
@@ -75,3 +56,53 @@ def sequence_arrays(images: np.ndarray, id_masks: np.ndarray, max_gt: int = 8) -
         "gt_valid": valid,
         "frame_valid": valid.any(axis=1),
     }
+
+
+def make_synthetic_davis(
+    root: str,
+    *,
+    num_sequences: int = 2,
+    frames: int = 12,
+    hw: tuple[int, int] | list[tuple[int, int]] = (60, 100),
+    num_objects: int = 2,
+    year: str = "2017",
+    subset: str | None = "train",
+    seed: int = 63,
+    resolution: str = "480p",
+    start: int = 0,
+) -> list[str]:
+    """Create a synthetic DAVIS tree under `root`. Returns sequence names.
+
+    `hw` may be one (h, w) for a uniform-resolution tree, or a list of
+    per-sequence (h, w) pairs (cycled) for a mixed-resolution tree. Call
+    again with `start` past the existing count (and another `subset`, or
+    None for sequences in no ImageSet) to extend a tree with more subsets:
+    the frame-level dataset splits by ImageSet membership like the reference
+    (`maskrcnn_src.py:30-52`)."""
+    rng = np.random.default_rng(seed)
+    hws = hw if isinstance(hw, list) else [hw]
+    names = []
+    img_lines = []
+    for s in range(num_sequences):
+        h, w = hws[s % len(hws)]
+        name = f"synth{start + s:02d}"
+        names.append(name)
+        img_dir = os.path.join(root, "JPEGImages", resolution, name)
+        msk_dir = os.path.join(root, "Annotations", resolution, name)
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(msk_dir, exist_ok=True)
+        images, id_masks = draw_sequence(rng, frames, h, w, num_objects)
+        for f in range(frames):
+            Image.fromarray(images[f]).save(os.path.join(img_dir, f"{f:05d}.jpg"))
+            save_palette_mask(id_masks[f], os.path.join(msk_dir, f"{f:05d}.png"))
+            img_lines.append(
+                f"/JPEGImages/{resolution}/{name}/{f:05d}.jpg "
+                f"/Annotations/{resolution}/{name}/{f:05d}.png"
+            )
+
+    if subset is not None:
+        sets_dir = os.path.join(root, "ImageSets", year if year == "2017" else resolution)
+        os.makedirs(sets_dir, exist_ok=True)
+        with open(os.path.join(sets_dir, f"{subset}.txt"), "w") as f:
+            f.write("\n".join(names if year == "2017" else img_lines) + "\n")
+    return names

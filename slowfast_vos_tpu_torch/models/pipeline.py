@@ -16,7 +16,11 @@ superchunk of SC frames plus the F-1 temporal halo runs
 
 `infer_sequence` streams a clip through superchunks. After the first, each
 chunk computes the backbone for its SC new frames only and carries the F-1
-overlap frames' features over from the previous chunk.
+overlap frames' features over from the previous chunk. With
+`instance_masks=True` it returns each detection's pasted mask probabilities
+as well (JAX `_finalize_instances_impl`). `compute_sequence_features` runs
+only the frozen backbone and the RPN over a sequence (the proposal dump of
+`train/pretrain.py`).
 """
 from __future__ import annotations
 
@@ -91,9 +95,9 @@ class Pipeline:
         mask_probs = torch.sigmoid(torch.gather(mask_logits, 4, sel))[..., 0]
         return boxes, scores, labels, dvalid, mask_probs
 
-    def _finalize(self, boxes, scores, labels, valid, mask_probs):
-        """Canvas-space detections -> original-resolution boxes and the
-        per-frame union mask (>= 0.5), bit-packed along the width."""
+    def _finalize_instances(self, boxes, scores, labels, valid, mask_probs):
+        """Canvas-space detections -> original-resolution boxes and every
+        detection's pasted mask probabilities [E, D, H, W]."""
         e, d = valid.shape
         h, w = self.transform.original_hw
         orig_boxes = self.transform.inverse_boxes(boxes)
@@ -101,10 +105,16 @@ class Pipeline:
             mask_probs.reshape(e * d, *mask_probs.shape[2:]), orig_boxes.reshape(-1, 4),
             (h, w), valid.reshape(-1),
         ).reshape(e, d, h, w)
+        return orig_boxes, scores, labels, valid, masks
+
+    def _finalize(self, *detections):
+        """`_finalize_instances` reduced to the per-frame union mask (>= 0.5),
+        bit-packed along the width."""
+        orig_boxes, scores, labels, valid, masks = self._finalize_instances(*detections)
         union = ((masks >= 0.5) & valid[:, :, None, None]).any(dim=1)
         return orig_boxes, scores, labels, valid, packbits(union)
 
-    def _detect_finalize(self, feats, feat_valid, sc):
+    def _detect_finalize(self, feats, feat_valid, sc, instance_masks=False):
         """Masked features -> RPN -> SlowFast -> RoI heads -> finalize.
         Returns (outputs, carry): carry is the last F-1 frames' masked
         features of all 5 levels, the next window's overlap."""
@@ -119,10 +129,11 @@ class Pipeline:
             obj, dlt, self.anchors, image_hw=self.image_hw, cfg=self.cfg
         )
         enhanced = self.model.enhance(feats[:4], pre_padded=True)
-        outs = self._finalize(*self._roi_forward(enhanced, proposals, pvalid))
+        finalize = self._finalize_instances if instance_masks else self._finalize
+        outs = finalize(*self._roi_forward(enhanced, proposals, pvalid))
         return outs, [fl[sc:] for fl in feats]
 
-    def _superchunk(self, images, feat_valid, carry=None):
+    def _superchunk(self, images, feat_valid, carry=None, instance_masks=False):
         """images: [SC + F - 1, H0, W0, 3] (no carry) or the SC new frames
         (carry: 5 levels [F-1, h, w, 256] of the overlap frames);
         feat_valid: [SC + F - 1] for the full window."""
@@ -130,7 +141,7 @@ class Pipeline:
         if carry is not None:
             feats = [torch.cat([cf, nf]) for cf, nf in zip(carry, feats)]
         sc = feats[0].shape[0] - (self.sf.fast - 1)
-        return self._detect_finalize(feats, feat_valid, sc)
+        return self._detect_finalize(feats, feat_valid, sc, instance_masks)
 
     @torch.inference_mode()
     def forward_superchunk(self, images: torch.Tensor, feat_valid: torch.Tensor):
@@ -145,13 +156,40 @@ class Pipeline:
         return self._superchunk(images, feat_valid)[0]
 
     @torch.inference_mode()
-    def infer_sequence(self, images: np.ndarray) -> list[dict[str, Any]]:
+    def compute_sequence_features(self, images: np.ndarray):
+        """The frozen backbone and the RPN over a whole sequence, a
+        superchunk of frames at a time (JAX `pipeline.py:337`).
+
+        images: [T, H, W, 3] uint8 (or float32 in [0,1]) at original
+        resolution. Returns (feats_padded: 4 levels [T + F - 1, h, w, 256]
+        with the zero halo, proposals [T, P, 4], pvalid [T, P]), on the
+        device."""
+        feats_parts, prop_parts, pvalid_parts = [], [], []
+        for i in range(0, images.shape[0], self.superchunk):
+            batch = torch.from_numpy(np.ascontiguousarray(images[i : i + self.superchunk])).to(self.device)
+            feats = self.model.backbone_feats(self.transform(batch))
+            obj, dlt = self.model.rpn_predict(feats)
+            proposals, _scores, pvalid = filter_proposals(
+                obj, dlt, self.anchors, image_hw=self.image_hw, cfg=self.cfg
+            )
+            feats_parts.append(feats[:4])
+            prop_parts.append(proposals)
+            pvalid_parts.append(pvalid)
+        pad = (0, 0, 0, 0, 0, 0, self.halo_left, self.halo_right)
+        feats_padded = [
+            torch.nn.functional.pad(torch.cat([p[lvl] for p in feats_parts]), pad) for lvl in range(4)
+        ]
+        return feats_padded, torch.cat(prop_parts), torch.cat(pvalid_parts)
+
+    @torch.inference_mode()
+    def infer_sequence(self, images: np.ndarray, *, instance_masks: bool = False) -> list[dict[str, Any]]:
         """Full-sequence inference at original resolution.
 
         images: [T, H, W, 3] uint8 (or float32 in [0,1]). Returns one dict per
         frame: boxes [D, 4], scores [D], labels [D], valid [D], union_mask
-        [H, W] bool. All outputs stay on the device until one fetch at the
-        end."""
+        [H, W] bool, and with `instance_masks=True` masks [D, H, W], each
+        detection's pasted mask probabilities. All outputs stay on the device
+        until one fetch at the end."""
         t = images.shape[0]
         sc = self.superchunk
         hl, hr = self.halo_left, self.halo_right
@@ -167,7 +205,7 @@ class Pipeline:
             window[~((idxs >= 0) & (idxs < t))] = 0
             dev_images = torch.from_numpy(window).to(self.device)
             dev_valid = torch.from_numpy(in_range).to(self.device)
-            outs, next_carry = self._superchunk(dev_images, dev_valid, carry)
+            outs, next_carry = self._superchunk(dev_images, dev_valid, carry, instance_masks)
             carry = next_carry if use_carry else None
             pending.append((min(sc, t - c), outs))
 
@@ -177,13 +215,20 @@ class Pipeline:
         for ci, (n, _) in enumerate(pending):
             for f in range(n):
                 g = ci * sc + f
-                out.append({
+                if instance_masks:
+                    union = ((fmasks[g] >= 0.5) & fvalid[g][:, None, None]).any(0)
+                else:
+                    union = np.unpackbits(fmasks[g], axis=-1, count=w).astype(bool)
+                det = {
                     "boxes": fboxes[g],
                     "scores": fscores[g],
                     "labels": flabels[g],
                     "valid": fvalid[g],
-                    "union_mask": np.unpackbits(fmasks[g], axis=-1, count=w).astype(bool),
-                })
+                    "union_mask": union,
+                }
+                if instance_masks:
+                    det["masks"] = fmasks[g]
+                out.append(det)
         return out
 
 
@@ -197,18 +242,20 @@ def build_pipeline(
     min_size: int = 800,
     max_size: int = 1333,
     cfg: DetectionConfig | None = None,
+    use_slow_fast: bool = True,
     device: str | torch.device | None = None,
     **kw,
 ) -> tuple[Pipeline, SlowFastMaskRCNN]:
     """Model + pipeline on `device` (default "cuda"; it raises where CUDA is
     absent unless the caller asks for "cpu"). Parameters are float32 and
     compute runs in `dtype`. Weights are torch's default init until the
-    caller loads a state dict or calls `init_weights`."""
+    caller loads a state dict or calls `init_weights`. `use_slow_fast=False`
+    builds the plain per-frame Mask R-CNN (no SlowFast module)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_pipeline: CUDA is not available; pass device='cpu' to run on the CPU")
     cfg = cfg or DetectionConfig(num_classes=num_classes)
-    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype).to(device)
+    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype, use_slow_fast).to(device)
     transform = ImageTransform(original_hw, min_size=min_size, max_size=max_size)
     return Pipeline(model, transform, **kw), model
 

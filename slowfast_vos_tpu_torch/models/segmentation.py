@@ -4,6 +4,9 @@ fusion of the FPN levels, RoI heads.
 Port of `slowfast_vos_tpu/models/segmentation.py`. The module tree is the
 reference's (a torchvision `maskrcnn_resnet50_fpn` plus `slow_fast.*`), so
 `load_state_dict(strict=True)` takes a reference state dict as it is.
+With `use_slow_fast=False` (the Mask R-CNN fine-tune, JAX
+`segmentation.py:40,63-69`) there is no SlowFast module: the RoI heads take
+the raw FPN levels, and the state dict is a plain Mask R-CNN's.
 Orchestration lives in `pipeline.py` (inference) and `train/train_step.py`
 (training). Only the SlowFast module behaves differently in train mode
 (its BatchNorms); the frozen backbone's are buffers.
@@ -31,13 +34,16 @@ class SlowFastMaskRCNN(nn.Module):
         cfg: DetectionConfig = DetectionConfig(),
         sf: SlowFastConfig = SlowFastConfig(),
         dtype: torch.dtype = torch.bfloat16,
+        use_slow_fast: bool = True,
     ):
         super().__init__()
         self.cfg, self.sf, self.dtype = cfg, sf, dtype
+        self.use_slow_fast = use_slow_fast
         self.backbone = ResNet50FPN(dtype)
         self.rpn = RegionProposalNetwork()
         self.roi_heads = RoIHeads(cfg.num_classes, dtype)
-        self.slow_fast = SlowFastTemporal(sf.slow, sf.fast, dtype=dtype)
+        if use_slow_fast:
+            self.slow_fast = SlowFastTemporal(sf.slow, sf.fast, dtype=dtype)
 
     def backbone_feats(self, images: torch.Tensor) -> list[torch.Tensor]:
         """[T, H, W, 3] -> 5 FPN levels [T, H/s, W/s, 256], strides 4..64."""
@@ -50,7 +56,14 @@ class SlowFastMaskRCNN(nn.Module):
         """SlowFast-enhance the 4 RoI levels with the shared module (the
         stride-64 level feeds only the RPN). In train mode each level's call
         updates the SlowFast running statistics in turn, as the four calls
-        of one flax `apply` do."""
+        of one flax `apply` do. Without SlowFast the levels pass through,
+        less the pre-padded halo."""
+        if not self.use_slow_fast:
+            f = self.sf.fast
+            if pre_padded and f > 1:
+                lo, hi = f // 2, -(-f // 2) - 1
+                return [x[lo : x.shape[0] - hi] for x in feats[:4]]
+            return list(feats[:4])
         return [self.slow_fast(f, pre_padded=pre_padded) for f in feats[:4]]
 
     def box_predict(self, pooled):

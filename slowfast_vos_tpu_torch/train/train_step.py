@@ -24,7 +24,7 @@ backward kernel on CUDA; the plain versions on the CPU.
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Callable, Iterable
 
 import torch
 
@@ -95,6 +95,11 @@ class Trainer:
     The samplers' uniform draws (`make_draws`) come from the trainer's
     `torch.Generator` unless the caller passes its own to `step`.
 
+    `lr` is a number or a schedule, a function of the update count (0 for
+    the first optimizer step) that gives the learning rate, as an optax
+    schedule does; a schedule runs as `LambdaLR` over an SGD whose base rate
+    is 1, stepped after each optimizer step.
+
     `accumulate > 1` steps the optimizer every k-th call with the mean of
     the k gradients (optax `MultiSteps`, the reference OSVOS accumulation).
     Freeze policies of the reference's OSVOS (`osvos_model.py:12-29`):
@@ -109,7 +114,7 @@ class Trainer:
         self,
         pipe: Pipeline,
         *,
-        lr: float = 1e-3,
+        lr: float | Callable[[int], float] = 1e-3,
         momentum: float = 0.9,
         weight_decay: float = 1e-4,
         n_center: int = 2,
@@ -136,11 +141,24 @@ class Trainer:
         self.params = trainable_parameters(self.model, self.trainable_keys, tbl)
         for name, p in self.model.named_parameters():
             p.requires_grad_(name in self.params)
-        self.optimizer = make_optimizer(list(self.params.values()), lr, momentum, weight_decay)
+            p.grad = None  # no gradient left over from an earlier trainer
+        base_lr = 1.0 if callable(lr) else lr
+        self.optimizer = make_optimizer(list(self.params.values()), base_lr, momentum, weight_decay)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, lr) if callable(lr) else None
         self.accumulate = accumulate
         self.calls = 0
-        self.num_anchors = sum(a.shape[0] for a in pipe.anchors)
         self.generator = torch.Generator(device=pipe.device).manual_seed(seed)
+
+    @property
+    def num_anchors(self) -> int:
+        return sum(a.shape[0] for a in self.pipe.anchors)
+
+    def use_pipeline(self, pipe: Pipeline) -> None:
+        """Train through `pipe`, another canvas over the same model: the
+        optimizer, schedule, generator and call counter stay shared."""
+        if pipe.model is not self.model:
+            raise ValueError("use_pipeline: the pipeline wraps another model")
+        self.pipe = pipe
 
     def make_draws(self, num_gt: int) -> dict[str, torch.Tensor]:
         """Uniform draws of one step's samplers: `rpn_pos`/`rpn_neg`
@@ -241,6 +259,8 @@ class Trainer:
         if self.calls % self.accumulate == 0:
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
+            if self.scheduler is not None:
+                self.scheduler.step()
         return metrics
 
     def eval_state_dict(self) -> dict[str, torch.Tensor]:

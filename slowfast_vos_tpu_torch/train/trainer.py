@@ -1,0 +1,139 @@
+"""Unsupervised VOS training driver.
+
+The port's copy of the serial path of `slowfast_vos_tpu/train/trainer.py`,
+a rebuild of the reference `code/train.py:49-121`: train on DAVIS-2017
+train sequences, SGD(1e-3, momentum 0.9, wd 1e-4) with effective 2-frame
+steps, a DAVIS-2016 val evaluation before training and after every epoch,
+best/last/resumable checkpoints and scalar metrics logging.
+
+The `Trainer` trains `pipe.model` in place and leaves it in eval mode, so
+the evaluation runs the same `Pipeline`. The samplers' draws come from the
+trainer's generator, seeded from `seed` at the start of every call (a
+resumed run included), as the JAX driver rebuilds `PRNGKey(seed)`.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from slowfast_vos_tpu_torch.data.davis import DavisIndex, load_sequence
+from slowfast_vos_tpu_torch.data.windows import train_windows
+from slowfast_vos_tpu_torch.eval.glue import davis_evaluation
+from slowfast_vos_tpu_torch.models.pipeline import Pipeline, init_weights
+from slowfast_vos_tpu_torch.train.train_step import Trainer
+from slowfast_vos_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from slowfast_vos_tpu_torch.utils.metrics import MetricsLogger
+from slowfast_vos_tpu_torch.utils.prefetch import prefetch
+
+
+def start_weights(model, state_dict: dict | None, seed: int) -> None:
+    """Load `state_dict` into `model`, or, when it is None, seeded random
+    weights (the JAX drivers' `init_variables(model, PRNGKey(seed))`)."""
+    if state_dict is None:
+        init_weights(model, seed)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+
+
+def finite_loss(metrics: dict) -> float:
+    """The step's loss as a number; a non-finite loss aborts training, as
+    the vendored engine does (`engine.py:48-51`)."""
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise FloatingPointError(f"Loss is {loss}, stopping training")
+    return loss
+
+
+def train_unsupervised(
+    pipe: Pipeline,
+    *,
+    train_root: str,
+    eval_root: str | None = None,
+    output_dir: str = "output",
+    epochs: int = 20,
+    lr: float = 1e-3,
+    seed: int = 63,
+    train_year: str = "2017",
+    eval_year: str = "2016",
+    continue_training: bool = False,
+    eval_every_epoch: bool = True,
+    max_windows_per_epoch: int | None = None,
+    state_dict: dict | None = None,
+    tensorboard: bool = False,
+):
+    """Train `pipe.model` in place. Returns (the `Trainer`, the history list
+    of per-epoch dicts {epoch, loss, eval}).
+
+    `state_dict` holds the starting weights (None: seeded random weights).
+    `continue_training` restores `<output_dir>/ckpt_last.pt` (weights,
+    momentum buffers, meta) and resumes at its epoch + 1. `tensorboard=True`
+    mirrors every scalar to TensorBoard event files like the reference's
+    SummaryWriter (`code/train.py:82,103,109-111`)."""
+    os.makedirs(output_dir, exist_ok=True)
+    start_weights(pipe.model, state_dict, seed)
+    trainer = Trainer(pipe, lr=lr, seed=seed)
+    start_epoch = 0
+
+    last_path = os.path.join(output_dir, "ckpt_last.pt")
+    best_path = os.path.join(output_dir, "ckpt_best.pt")
+    if continue_training and os.path.exists(last_path):
+        start_epoch = restore_checkpoint(last_path, trainer).get("epoch", 0) + 1
+
+    index = DavisIndex(train_root, "train", year=train_year)
+    model_name = f"slowfast_{pipe.sf.slow}-{pipe.sf.fast}"
+
+    def run_eval():
+        if not eval_every_epoch or eval_root is None:
+            return None
+        jf, summary, _, wall = davis_evaluation(
+            pipe,
+            davis_root=eval_root,
+            results_root=os.path.join(output_dir, "results"),
+            model_name=model_name,
+            year=eval_year,
+        )
+        return {"jf": jf, "wall": wall, **summary}
+
+    def epoch_windows():
+        count = 0
+        for info in index:
+            seq = load_sequence(info, max_gt=pipe.cfg.max_gt)
+            for batch in train_windows(seq, fast=pipe.sf.fast, n_center=trainer.n_center):
+                yield batch
+                count += 1
+                if max_windows_per_epoch and count >= max_windows_per_epoch:
+                    return
+
+    history = []
+    best_jf = -1.0
+    with MetricsLogger(os.path.join(output_dir, "logs"), "train", tensorboard=tensorboard) as logger:
+        # Sanity eval before training, as the reference does (train.py:95-96).
+        pre = run_eval()
+        if pre is not None:
+            logger.scalar("eval/jf", pre["jf"], step=-1)
+
+        global_step = 0
+        for epoch in range(start_epoch, epochs):
+            epoch_loss = 0.0
+            # Decode and pack the next windows on a background thread while
+            # the device steps; the order, and so the trajectory, is unchanged.
+            with prefetch(epoch_windows(), depth=2) as batches:
+                for batch in batches:
+                    loss = finite_loss(trainer.step(batch))
+                    epoch_loss += loss
+                    logger.scalar("train/batch_loss", loss, global_step)
+                    global_step += 1
+
+            logger.scalar("train/epoch_loss", epoch_loss, epoch)
+            ev = run_eval()
+            history.append({"epoch": epoch, "loss": epoch_loss, "eval": ev})
+            save_checkpoint(last_path, trainer, meta={"epoch": epoch})
+            if ev is not None:
+                logger.scalars({"jf": ev["jf"], "time": ev["wall"]}, epoch, prefix="eval/")
+                if ev["jf"] > best_jf:
+                    best_jf = ev["jf"]
+                    save_checkpoint(best_path, trainer, meta={"epoch": epoch, "jf": ev["jf"]})
+            else:
+                save_checkpoint(best_path, trainer, meta={"epoch": epoch})
+    return trainer, history

@@ -30,7 +30,7 @@ import optax
 import pytest
 import torch
 
-from torch_port_common import noisy_variables, rel_err
+from torch_port_common import jax_draws, noisy_variables, rel_err
 from slowfast_vos_tpu.data.davis import decode_frame_annotation, save_palette_mask
 from slowfast_vos_tpu.data.synthetic import _draw_sequence as jax_draw_sequence
 from slowfast_vos_tpu.data.windows import train_windows as jax_train_windows
@@ -89,20 +89,6 @@ def make_batch(rng, n_center=2, fast=3, max_gt=3):
         "gt_valid": gt_valid,
         "masks": masks,
     }
-
-
-def jax_draws(key, n, num_anchors, num_boxes):
-    """The uniform draws `Trainer._loss_fn` makes from `key`: split into the
-    RPN and sampling keys, each split per frame, each frame's key split
-    into (positive, negative) draws (`train_step.py:236,252`,
-    `rpn.py:273`, `matching.py:79-82,121-123`)."""
-    key_rpn, key_sample = jax.random.split(key)
-    out = {}
-    for name, k, m in (("rpn", key_rpn, num_anchors), ("box", key_sample, num_boxes)):
-        pairs = [jax.random.split(fk) for fk in jax.random.split(k, n)]
-        out[f"{name}_pos"] = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(kp, (m,))) for kp, _ in pairs]))
-        out[f"{name}_neg"] = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(kn, (m,))) for _, kn in pairs]))
-    return out
 
 
 class SharedBackbone:
