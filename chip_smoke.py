@@ -52,13 +52,26 @@ Phases, each fatal on failure:
              (4 items, 2 updates); `train_maskrcnn` (3 steps of 2 frames)
              and `extract_rpn_proposals`. Launch counts of both kernels at
              both pools are read around each driver; ms/step, wall seconds
-             and peak device memory are printed.
+             and peak device memory are printed;
+8. cli     - the CLIs (`scripts/torch_*.py`) as the reference's chain, each
+             through `main(argv)` at the same width on trees like phase 7's:
+             the Mask R-CNN fine-tune (1 epoch) and its proposal dump;
+             unsupervised training (1 epoch) from that checkpoint, whose
+             `slow_fast.*` the loader must report untouched; evaluation of
+             `ckpt_best`; extraction, and the scorer on the extracted tree
+             (J&F equal to the evaluation's within 1e-6); OSVOS single (4
+             items); the overlay dump; the trained weights as a reference
+             `.pth` (prefixed keys, `num_batches_tracked`) through the
+             evaluation (no unused key, the same J&F); one real subprocess
+             of `scripts/torch_evaluate.py`; `torch_bench.py --runs 2` and
+             `--train`. Wall seconds and launch counts of each CLI.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, where CUDA is absent or any phase fails.
 """
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -564,17 +577,19 @@ def timed_steps(train_mod):
         train_mod.Trainer.step = step
 
 
+LAUNCH_KEYS = (7, 14, ("backward", 7), ("backward", 14))  # K1 and K5 at both pools
+
+
 @contextlib.contextmanager
-def launches_of(ra, counts: dict, name: str):
+def launches_of(ra, counts: dict, name: str, required=LAUNCH_KEYS, tag: str = "drivers"):
     """Launch counts of K1 and K5 at both pools over the block, kept under
-    `name` and checked above zero."""
-    keys = (7, 14, ("backward", 7), ("backward", 14))
+    `name`; those of `required` checked above zero."""
     ra.launches.clear()
     yield
-    counts[name] = {k: ra.launches[k] for k in keys}
-    log(f"drivers: {name}: launches pool7 {counts[name][7]}, pool14 {counts[name][14]}, backward pool7 "
+    counts[name] = {k: ra.launches[k] for k in LAUNCH_KEYS}
+    log(f"{tag}: {name}: launches pool7 {counts[name][7]}, pool14 {counts[name][14]}, backward pool7 "
         f"{counts[name]['backward', 7]}, backward pool14 {counts[name]['backward', 14]}")
-    check(all(v > 0 for v in counts[name].values()), f"{name} bypassed a kernel: {counts[name]}")
+    check(all(counts[name][k] > 0 for k in required), f"{name} bypassed a kernel: {counts[name]}")
 
 
 def phase_drivers(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
@@ -720,6 +735,126 @@ def phase_drivers(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
     return out
 
 
+def phase_cli(ra, data, workdir: Path) -> dict:
+    """The CLIs (`scripts/torch_*.py`) as the reference's chain, in-process
+    through `main(argv)` at full width (480x854, bf16, default
+    DetectionConfig, superchunk 32) on synthetic DAVIS trees: the Mask R-CNN
+    fine-tune and its proposal dump, unsupervised training from that
+    checkpoint, evaluation, extraction and the standalone scorer, OSVOS,
+    the overlay dump, a reference-layout `.pth` of the trained weights
+    through the evaluation, one real subprocess, and the benchmark. Returns
+    each CLI's wall seconds and launch counts, and the benchmark's
+    records."""
+    from scripts import (
+        torch_bench, torch_evaluate, torch_extract_for_davis_eval, torch_predict, torch_pretrain_maskrcnn,
+        torch_score, torch_train, torch_train_osvos,
+    )
+    from slowfast_vos_tpu_torch.train import osvos
+    from slowfast_vos_tpu_torch.utils import checkpoint
+
+    train_root, eval_root = str(workdir / "train17"), str(workdir / "eval16")
+    data.make_synthetic_davis(train_root, num_sequences=2, frames=8, hw=DRIVER_HW, num_objects=2)
+    data.make_synthetic_davis(eval_root, num_sequences=1, frames=16, hw=DRIVER_HW, num_objects=1, year="2016",
+                              subset="val", seed=7)
+    counts, walls = {}, {}
+    forward = (7, 14)
+
+    def run(name, cli, argv, required=LAUNCH_KEYS):
+        with launches_of(ra, counts, name, required, tag="cli"):
+            t0 = time.perf_counter()
+            result = cli.main(argv)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        log(f"cli: {name}: {walls[name]:.2f} s wall")
+        return result
+
+    pre, run_dir = str(workdir / "pre"), str(workdir / "unsupervised")
+    ckpt = str(Path(pre) / "maskrcnn_model.pt")
+    out = run("pretrain", torch_pretrain_maskrcnn, ["--davis-root", train_root, "--output", pre, "--epochs", "1"])
+    check(len(out["history"]) == 1 and np.isfinite(out["history"][0]["loss"]), f"pretrain history {out['history']}")
+    # The proposal dump runs the backbone and the RPN only: no RoIAlign.
+    out = run("pretrain --predict-boxes", torch_pretrain_maskrcnn,
+              ["--davis-root", train_root, "--output", pre, "--predict-boxes", "--init-checkpoint", ckpt], required=())
+    props = np.load(out["proposals"])["synth00/proposals"]
+    check(props.shape == (8, 1000, 4) and np.isfinite(props).all(), f"proposal dump {props.shape}")
+
+    out = run("train", torch_train, ["--train-root", train_root, "--eval-root", eval_root, "--output", run_dir,
+                                      "--epochs", "1", "--init-checkpoint", ckpt])
+    report, history = out["load"], out["history"]
+    model_keys = checkpoint.load_checkpoint(str(Path(run_dir) / "ckpt_last.pt"))["model"]
+    sf = [k for k in model_keys if k.startswith("slow_fast.") and "num_batches_tracked" not in k]
+    check(report["unused_source_keys"] == [] and report["untouched"] == sf
+          and report["converted"] == len([k for k in model_keys if not k.startswith("slow_fast.")]),
+          f"the Mask R-CNN checkpoint did not load as F2 asks: {report['converted']} converted, "
+          f"unused {report['unused_source_keys'][:5]}, untouched {report['untouched'][:5]}")
+    check(len(history) == 1 and np.isfinite(history[0]["loss"]) and history[0]["eval"] is not None, f"train {history}")
+    log(f"cli: train from the Mask R-CNN checkpoint: {report['converted']} tensors converted, 0 unused, "
+        f"{len(sf)} slow_fast.* tensors untouched; loss {history[0]['loss']:.4f}, J&F {history[0]['eval']['jf']:.4f}")
+
+    best = str(Path(run_dir) / "ckpt_best.pt")
+    common = ["--davis-root", eval_root, "--checkpoint", best]
+    ev = run("evaluate", torch_evaluate, [*common, "--results-root", str(workdir / "results")], forward)
+    check(ev["load"]["unused_source_keys"] == [] and ev["load"]["untouched"] == [], "ckpt_best did not load whole")
+    extract = workdir / "extract"
+    run("extract_for_davis_eval", torch_extract_for_davis_eval, [*common, "--out-dir", str(extract)], forward)
+    check(sorted(p.name for p in (extract / "synth00").iterdir()) == [f"{i:05d}.png" for i in range(16)],
+          "the extracted tree lacks a frame")
+    summary = run("score", torch_score, ["--davis-root", eval_root, "--results-path", str(extract), "--codalab"], ())
+    check(all(v == 0 for v in counts["score"].values()), f"the scorer launched a kernel: {counts['score']}")
+    diff = max(abs(summary[k] - ev["summary"][k]) for k in summary)
+    log(f"cli: score of the extracted tree J&F {summary['J&F-Mean']:.6f}, evaluate {ev['jf']:.6f}, "
+        f"largest difference over {len(summary)} statistics {diff:.3e} (tol 1e-6)")
+    check(summary.keys() == ev["summary"].keys() and diff <= 1e-6, "score and evaluate disagree")
+
+    fine_tune = osvos.train_osvos_sequence
+    osvos.train_osvos_sequence = functools.partial(fine_tune, items_per_epoch=4)  # as phase 7: 2 updates
+    try:
+        results = run("train_osvos single", torch_train_osvos, [*common, "--sequence", "synth00", "--epochs", "1",
+                                                                "--results-root", str(workdir / "osvos")])
+    finally:
+        osvos.train_osvos_sequence = fine_tune
+    check(sorted(results) == [-1, 0], f"OSVOS results {results}")
+
+    pred = workdir / "predictions"
+    out = run("predict --save-all", torch_predict, [*common, "--out-dir", str(pred), "--save-all"], forward)
+    check(len(list(pred.glob("synth00_*_iou*.png"))) == 16 and 0.0 <= out["miou"] <= 1.0, "overlays missing")
+
+    # F1: the trained weights in the reference's full-model layout.
+    sd = checkpoint.load_checkpoint(best)["model"]
+    ref = {(k if k.startswith("slow_fast.") else f"maskrcnn_model.{k}"): v for k, v in sd.items()}
+    ref["maskrcnn_model.backbone.body.bn1.num_batches_tracked"] = torch.tensor(0)
+    pth = str(workdir / "model_slow_fast_3_3.pth")
+    torch.save(ref, pth)
+    ev_pth = run("evaluate .pth", torch_evaluate,
+                 ["--davis-root", eval_root, "--checkpoint", pth, "--results-root", str(workdir / "results_pth")], forward)
+    report = ev_pth["load"]
+    log(f"cli: reference-layout .pth: {report['converted']} converted, {len(report['unused_source_keys'])} unused, "
+        f"{len(report['untouched'])} untouched; J&F {ev_pth['jf']:.6f} against {ev['jf']:.6f}")
+    check(report["unused_source_keys"] == [] and report["untouched"] == [], "the reference .pth did not load whole")
+    check(abs(ev_pth["jf"] - ev["jf"]) <= 1e-6, "the reference .pth evaluates otherwise than ckpt_best")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "scripts" / "torch_evaluate.py"), *common,
+         "--results-root", str(workdir / "results_subprocess")],
+        capture_output=True, text=True, timeout=600,
+    )
+    walls["evaluate (subprocess)"] = time.perf_counter() - t0
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("J&F-Mean: ")), "")
+    log(f"cli: python3 scripts/torch_evaluate.py: exit {proc.returncode} in {walls['evaluate (subprocess)']:.2f} s, "
+        f"{line!r}")
+    check(proc.returncode == 0 and line == f"J&F-Mean: {ev['jf']:.4f}", f"the script entry failed: {proc.stderr[-2000:]}")
+
+    bench = run("bench --runs 2", torch_bench, ["--runs", "2"], forward)
+    bench += run("bench --train", torch_bench, ["--train"])
+    infer, train = bench
+    check(all(k in infer for k in ("metric", "value", "unit", "vs_baseline", "median", "runs", "config", "transport",
+                                   "device_fps", "device_median", "device_mfu", "card")) and infer["value"] > 0,
+          f"bench record {infer}")
+    check(train["metric"] == "train_frames_per_sec_per_chip" and train["step_ms"] > 0, f"bench --train record {train}")
+    return {"walls_s": walls, "counts": counts, "bench": bench}
+
+
 def backward_bound(ra, g, rois, out_size) -> tuple[float, str]:
     """Least time for the backward on an H100: bytes (g read once, the
     gradient pyramid written once in g's dtype, rois and levels once) over
@@ -862,13 +997,19 @@ def main() -> int:
     records += backward_timings(ra, bwd_errs, train["counts"], train_rois)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_", dir=cuda_build.BUILD_DIR) as workdir:
         drivers = phase_drivers(ra, pipeline_mod, train_mod, data, Path(workdir))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=cuda_build.BUILD_DIR) as workdir:
+        cli = phase_cli(ra, data, Path(workdir))
+    log(f"cli: phase 8 in {time.perf_counter() - t0:.1f} s")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
         key = ("backward", size) if "backward" in r["name"] else size
         r["drivers_launches"] = {name: c[key] for name, c in drivers["counts"].items()}
+        r["cli_launches"] = {name: c[key] for name, c in cli["counts"].items()}
 
     log(json.dumps({"train_step": {k: train[k] for k in ("step_ms", "step_times_ms", "peak_gib")}}))
     log(json.dumps({"drivers": {k: v for k, v in drivers.items() if k != "counts"}}))
+    log(json.dumps({"cli": {k: v for k, v in cli.items() if k != "counts"}}))
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -2,8 +2,10 @@
 fusion of the FPN levels, RoI heads.
 
 Port of `slowfast_vos_tpu/models/segmentation.py`. The module tree is the
-reference's (a torchvision `maskrcnn_resnet50_fpn` plus `slow_fast.*`), so
-`load_state_dict(strict=True)` takes a reference state dict as it is.
+reference's (a torchvision `maskrcnn_resnet50_fpn` plus `slow_fast.*`) under
+the reference's names, less its `maskrcnn_model.` prefix: a reference
+`.pth` enters through `convert/from_torchvision.py::load_init`, which strips
+that prefix and keeps tensors the file lacks at their init.
 With `use_slow_fast=False` (the Mask R-CNN fine-tune, JAX
 `segmentation.py:40,63-69`) there is no SlowFast module: the RoI heads take
 the raw FPN levels, and the state dict is a plain Mask R-CNN's.

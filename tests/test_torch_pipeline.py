@@ -115,7 +115,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def _port_sources():
     files = sorted((ROOT / "slowfast_vos_tpu_torch").rglob("*.py"))
-    scripts = [ROOT / "scripts" / n for n in ("torch_profile_pipeline.py", "torch_profile_train.py", "torch_roi_align_compare.py", "torch_profile_drivers.py")]
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
     return files + [ROOT / "chip_smoke.py", *scripts, ROOT / "tests" / "torch_roi_cases.py", ROOT / "tests" / "test_torch_cuda.py"]
 
 
