@@ -64,7 +64,29 @@ Phases, each fatal on failure:
              `.pth` (prefixed keys, `num_batches_tracked`) through the
              evaluation (no unused key, the same J&F); one real subprocess
              of `scripts/torch_evaluate.py`; `torch_bench.py --runs 2` and
-             `--train`. Wall seconds and launch counts of each CLI.
+             `--train`. Wall seconds and launch counts of each CLI;
+9. parallel - the parallel layer at the same width on trees like phase
+             7's: two ranks of one process group on the one card, worker
+             processes of this script started once (nccl is tried first and
+             refuses two ranks on one GPU, so they run on gloo with the
+             tensors on the card): 3 data-parallel steps (the loss against
+             the mean of both windows' single-window losses at the same
+             weights and draws, the ranks' parameters bit-equal after every
+             step), `train_unsupervised` data parallel for 1 epoch of 3
+             windows (a wrap-filled group; identical histories, checkpoints
+             on rank 0 only), the sharded `davis_evaluation` of 3 sequences
+             (the PNG tree byte-identical to the serial one, the same J&F)
+             and the sharded `run_osvos_for_all_sequences` of 2 sequences
+             of 4 items (the merged JSON equal to the serial run's); a
+             one-rank nccl group's 2 DP steps, then 5 warm serial and DP
+             steps in turns on one window and draws; in this process
+             `DeviceParallelInference` over [cuda:0, cuda:0] on ragged clips
+             (detections equal to serial bit for bit) and lockstep OSVOS of
+             2 members (each equal to its serial fine-tune), members on
+             their own host threads. Launch counts of each rank and
+             sub-step, ms per DP step, the one-rank group's warm DP and
+             serial steps in turns, wall seconds. Two ranks on one card
+             show correctness and overhead, not scaling.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -963,6 +985,338 @@ def phase_timings(ra, errs: dict, counts: dict, main_rois: dict) -> list:
     return records
 
 
+# Phase 9: the parallel layer. Two ranks on the one card run as worker
+# processes of this script (`--parallel-worker MODE BACKEND WORKDIR`).
+PARALLEL_WORKER = "--parallel-worker"
+DP_STEPS = 3
+NCCL1_PAIRS = 5  # warm serial and one-rank DP steps, in turns
+DP_LOSS_RTOL = 1e-4  # bf16: the single-window forward runs without autograd
+
+
+def launch_delta(ra, before) -> dict:
+    """Launches of K1 and K5 at both pools since `before` (a copy of the
+    counter), as a JSON-able dict."""
+    return {str(k): ra.launches[k] - before[k] for k in LAUNCH_KEYS}
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_worker(mode: str, backend: str, workdir: Path) -> int:
+    """One rank of phase 9's process group (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT in the environment); writes its results to
+    `<workdir>/<mode>_rank<r>.json`. Mode `probe`: join the group and
+    all-reduce one tensor on the card. Mode `nccl1`: two data-parallel
+    steps in a group of one, then warm `Trainer.step`s and DP steps in
+    turns on one window and draws. Mode `pair`: the DP steps, data-parallel
+    `train_unsupervised`, the sharded evaluation and the sharded OSVOS run."""
+    import collections
+
+    from slowfast_vos_tpu_torch import data
+    from slowfast_vos_tpu_torch.models import pipeline as pipeline_mod
+    from slowfast_vos_tpu_torch.ops import roi_align as ra
+    from slowfast_vos_tpu_torch.parallel import distributed as pdist
+    from slowfast_vos_tpu_torch.parallel.sharded import make_sharded_train_step, replicate_state, running_buffers
+    from slowfast_vos_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(pdist.init_distributed_mode(backend=backend, verbose=False), "the worker found no launch environment")
+    rank, world = pdist.get_rank(), pdist.get_world_size()
+    out: dict = {"rank": rank, "world": world, "backend": torch.distributed.get_backend(), "walls_s": {}, "counts": {}}
+    if mode == "probe":
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        torch.distributed.all_reduce(t)
+        check(t.tolist() == [3.0] * 4, f"all_reduce gave {t.tolist()}")
+    else:
+        pipe, model = pipeline_mod.build_pipeline(3, 3, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=SC)
+        pipeline_mod.init_weights(model, seed=0)
+        trainer = Trainer(pipe, seed=0)
+        replicate_state(model)
+        step = make_sharded_train_step(trainer)
+        window, _ = training_window(data, DRIVER_HW, 8, pipe.cfg.max_gt, index=rank % 2)
+        buffers = running_buffers(model)
+        counts, step_ms, rels = collections.Counter(), [], []
+        for _ in range(DP_STEPS if mode == "pair" else 2):
+            draws = trainer.make_draws(int(window["boxes"].shape[1]))
+            saved = [b.clone() for b in buffers]
+            model.train()
+            with torch.no_grad():
+                single = float(trainer.loss(window, draws)[0])
+            model.eval()
+            for b, v in zip(buffers, saved):
+                b.copy_(v)
+            singles = pdist.all_gather_host(single)
+            before = collections.Counter(ra.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(window, draws)["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts.update({k: ra.launches[k] - before[k] for k in LAUNCH_KEYS})
+            want = statistics.fmean(singles)
+            rels.append(abs(loss - want) / abs(want))
+            check(rels[-1] <= DP_LOSS_RTOL, f"DP loss {loss} against the mean of the windows' losses {singles}")
+            digests = pdist.all_gather_host(params_digest(model))
+            check(len(set(digests)) == 1, "the ranks' parameters differ after a DP step")
+        out["counts"]["dp_steps"] = {str(k): counts[k] for k in LAUNCH_KEYS}
+        out["dp_step_ms"], out["dp_loss_rel_err"] = step_ms, rels
+        if mode == "nccl1":
+            # Warm steps in turns on the same window and draws: `Trainer.step`
+            # and the DP step of a group of one, which adds the collectives.
+            draws = trainer.make_draws(int(window["boxes"].shape[1]))
+            turns = {"serial": [], "dp": []}
+            for _ in range(NCCL1_PAIRS):
+                for name, fn in (("serial", trainer.step), ("dp", step)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    float(fn(window, draws)["loss"])
+                    torch.cuda.synchronize()
+                    turns[name].append((time.perf_counter() - t0) * 1e3)
+            out["turns_ms"] = turns
+        if mode == "pair":
+            parallel_drivers(out, workdir, pipe, model, rank)
+    (workdir / f"{mode}_rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_drivers(out: dict, workdir: Path, pipe, model, rank: int) -> None:
+    """Phase 9's drivers on one rank of the pair: data-parallel
+    `train_unsupervised` (1 epoch of 3 windows: one wrap-filled group), the
+    sharded `davis_evaluation` of 3 sequences against the serial one, and
+    the sharded `run_osvos_for_all_sequences` of 2 sequences against the
+    serial run."""
+    import collections
+
+    from slowfast_vos_tpu_torch.eval import glue, scorer
+    from slowfast_vos_tpu_torch.ops import roi_align as ra
+    from slowfast_vos_tpu_torch.parallel import distributed as pdist
+    from slowfast_vos_tpu_torch.train import osvos, trainer as unsupervised
+
+    def timed(name, fn):
+        before = collections.Counter(ra.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["walls_s"][name] = time.perf_counter() - t0
+        out["counts"][name] = launch_delta(ra, before)
+        return result
+
+    run_dir = workdir / f"unsupervised_rank{rank}"
+    _, history = timed("train_unsupervised", lambda: unsupervised.train_unsupervised(
+        pipe, train_root=str(workdir / "train17"), output_dir=str(run_dir), epochs=1, max_windows_per_epoch=3, seed=0,
+    ))
+    out["history"] = history
+    out["run_files"] = sorted(p.name for p in run_dir.iterdir())
+    histories = pdist.all_gather_host(history)
+    check(histories[0] == histories[1] and np.isfinite(history[0]["loss"]), f"DP histories {histories}")
+
+    eval_root = str(workdir / "eval3")
+    jf, summary, *_ = timed("davis_evaluation", lambda: glue.davis_evaluation(
+        pipe, davis_root=eval_root, results_root=str(workdir / "sharded"), model_name="m", year="2016",
+    ))
+    out["jf"] = jf
+    if rank == 0:
+        serial_tree = workdir / "serial_tree"
+        glue.extract_masks(pipe, eval_root, str(serial_tree), year="2016", shard_by_process=False)
+        serial = scorer.summarize(scorer.DavisScorer(eval_root, task="unsupervised", gt_set="val", year="2016")
+                                  .evaluate(str(serial_tree)))
+        sharded_tree = workdir / "sharded" / "unsupervised" / "m"
+        files = sorted(p.relative_to(serial_tree) for p in serial_tree.rglob("*.png"))
+        check(len(files) == 24 and files == sorted(p.relative_to(sharded_tree) for p in sharded_tree.rglob("*.png")),
+              "the sharded tree holds other files than the serial one")
+        check(all((serial_tree / f).read_bytes() == (sharded_tree / f).read_bytes() for f in files),
+              "the sharded PNG tree differs from the serial one")
+        check(summary == serial, f"sharded J&F {summary} against serial {serial}")
+        out["serial_jf"] = serial["J&F-Mean"]
+
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cfg = osvos.ExperimentConfig(freeze="SF", epochs=1)
+    kw = dict(davis_root=str(workdir / "osvos2"), cfg=cfg, items_per_epoch=4)
+    results = timed("run_osvos_for_all_sequences", lambda: osvos.run_osvos_for_all_sequences(
+        pipe, start, results_root=str(workdir / "osvos_res"), output_json=str(workdir / "osvos.json"), **kw,
+    ))
+    if rank == 0:
+        serial = osvos.run_osvos_for_all_sequences(
+            pipe, start, results_root=str(workdir / "osvos_serial"), output_json=str(workdir / "osvos_serial.json"),
+            shard_by_process=False, **kw,
+        )
+        strip = lambda res: {s: {e: {k: v for k, v in r.items() if k != "eval_time"} for e, r in per.items()}  # noqa: E731
+                             for s, per in res.items()}
+        merged = json.loads((workdir / "osvos.json").read_text())
+        check(strip(results) == strip(serial) and strip(merged) == strip(json.loads((workdir / "osvos_serial.json")
+                                                                                      .read_text())),
+              f"sharded OSVOS {results} against serial {serial}")
+        check(all((workdir / f"osvos.json.rank{r}").exists() for r in range(2)), "a rank's OSVOS JSON is missing")
+    pdist.host_barrier("phase 9 done")
+
+
+def start_ranks(mode: str, backend: str, workdir: Path, world: int) -> list:
+    """Start `world` ranks of this script's worker on the card; returns
+    [(process, log path)] for `wait_ranks`."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ranks = []
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        log_path = workdir / f"{mode}_rank{rank}.log"
+        with open(log_path, "w") as f:
+            ranks.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), PARALLEL_WORKER, mode, backend, str(workdir)],
+                env=env, stdout=f, stderr=subprocess.STDOUT,
+            ), log_path))
+    return ranks
+
+
+def wait_ranks(ranks: list, mode: str, workdir: Path, timeout_s: float):
+    """Wait for ranks from `start_ranks`, killing every one still running at
+    `timeout_s`. Returns (exit codes, each rank's results or None, the tail
+    of each rank's log, wall seconds since the wait began)."""
+    t0 = time.perf_counter()
+    codes = []
+    try:
+        for p, _ in ranks:
+            try:
+                codes.append(p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0))))
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
+    finally:
+        for p, _ in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = [json.loads(r.read_text()) if (r := workdir / f"{mode}_rank{i}.json").exists() else None
+               for i in range(len(ranks))]
+    return codes, results, [lg.read_text()[-3000:] for _, lg in ranks], time.perf_counter() - t0
+
+
+def phase_parallel(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
+    """Phase 9: two ranks on the one card through the data-parallel step,
+    `train_unsupervised`, the sharded evaluation and OSVOS; a group of one
+    on `nccl`; then in this process `DeviceParallelInference` over
+    [cuda:0, cuda:0] and lockstep OSVOS of two members, each against its
+    serial run. Returns timings and launch counts."""
+    from slowfast_vos_tpu_torch.parallel import DeviceParallelInference
+    from slowfast_vos_tpu_torch.train import osvos
+
+    hw = DRIVER_HW
+    data.make_synthetic_davis(str(workdir / "train17"), num_sequences=2, frames=8, hw=hw, num_objects=2)
+    data.make_synthetic_davis(str(workdir / "eval3"), num_sequences=3, frames=8, hw=hw, num_objects=1, year="2016",
+                              subset="val", seed=7)
+    data.make_synthetic_davis(str(workdir / "osvos2"), num_sequences=2, frames=8, hw=hw, num_objects=1, year="2016",
+                              subset="val", seed=9)
+    out: dict = {"walls_s": {}, "counts": {}}
+
+    # The nccl probe of two ranks and the one-rank nccl group start together.
+    t0 = time.perf_counter()
+    probe, nccl1 = start_ranks("probe", "nccl", workdir, 2), start_ranks("nccl1", "nccl", workdir, 1)
+    codes, _, tails, _ = wait_ranks(probe, "probe", workdir, timeout_s=120)
+    wall = time.perf_counter() - t0
+    nccl_pair = codes == [0, 0]
+    lines = [ln for t in tails for ln in t.splitlines()]
+    refusal = next((ln for ln in lines if "Duplicate GPU" in ln), next((ln for ln in lines if "ncclInvalidUsage" in ln), ""))
+    out["nccl_two_ranks_one_card"] = "accepted" if nccl_pair else f"refused (exit codes {codes}): {refusal.strip()[:300]}"
+    log(f"parallel: nccl with two ranks on one card: {out['nccl_two_ranks_one_card']} (after {wall:.1f} s)")
+    backend = "nccl" if nccl_pair else "gloo"
+    codes, results, tails, _ = wait_ranks(nccl1, "nccl1", workdir, timeout_s=240)
+    wall = time.perf_counter() - t0
+    check(codes == [0] and results[0] is not None and results[0]["backend"] == "nccl",
+          f"the one-rank nccl run failed (exit {codes}):\n{tails[0]}")
+    c = results[0]["counts"]["dp_steps"]
+    out["counts"]["nccl1 dp_step"], out["walls_s"]["probe + nccl1"] = c, wall
+    out["dp_step_ms"] = {"nccl1": results[0]["dp_step_ms"]}
+    check(all(c[str(k)] > 0 for k in LAUNCH_KEYS), f"the nccl step bypassed a kernel: {c}")
+    turns = results[0]["turns_ms"]
+    out["nccl1_turns_ms"] = turns
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    log(f"parallel: one nccl rank: 2 DP steps in {', '.join(f'{t:.1f}' for t in results[0]['dp_step_ms'])} ms, "
+        f"launches {c} (with the probe {wall:.1f} s); then {NCCL1_PAIRS} warm steps each in turns on one window "
+        f"and draws: Trainer.step median {med['serial']:.2f} ms ({', '.join(f'{t:.1f}' for t in turns['serial'])}),"
+        f" the one-rank DP step {med['dp']:.2f} ms ({', '.join(f'{t:.1f}' for t in turns['dp'])}), "
+        f"difference {med['dp'] - med['serial']:.2f} ms")
+
+    codes, results, tails, wall = wait_ranks(start_ranks("pair", backend, workdir, 2), "pair", workdir, timeout_s=600)
+    check(codes == [0, 0] and None not in results,
+          f"the {backend} pair failed (exit codes {codes}):\n" + "\n---\n".join(tails))
+    out["backend"], out["walls_s"]["pair"] = backend, wall
+    r0, r1 = results
+    check(r0["world"] == 2 and r0["backend"] == backend, f"pair ran as {r0['world']} ranks on {r0['backend']}")
+    check({"ckpt_last.pt", "ckpt_best.pt"} <= set(r0["run_files"]) and not {"ckpt_last.pt", "ckpt_best.pt"} &
+          set(r1["run_files"]), f"checkpoints: rank 0 {r0['run_files']}, rank 1 {r1['run_files']}")
+    for r in results:
+        for name, c in r["counts"].items():
+            key = f"{name} rank{r['rank']}"
+            out["counts"][key] = c
+            required = ("7", "14") if name == "davis_evaluation" else tuple(str(k) for k in LAUNCH_KEYS)
+            check(all(c[k] > 0 for k in required), f"{key} bypassed a kernel: {c}")
+            log(f"parallel: {key}: launches pool7 {c['7']}, pool14 {c['14']}, backward pool7 "
+                f"{c[str(('backward', 7))]}, backward pool14 {c[str(('backward', 14))]}")
+    out["dp_step_ms"].update({f"rank{r['rank']}": r["dp_step_ms"] for r in results})
+    out["dp_loss_rel_err"] = max(max(r["dp_loss_rel_err"]) for r in results)
+    out["walls_s"].update({f"{k} rank{r['rank']}": v for r in results for k, v in r["walls_s"].items()})
+    log(f"parallel: {DP_STEPS} DP steps on 2 {backend} ranks (one card): ms/step rank 0 "
+        f"{', '.join(f'{t:.1f}' for t in r0['dp_step_ms'])}, rank 1 {', '.join(f'{t:.1f}' for t in r1['dp_step_ms'])}; "
+        f"loss against the mean of the windows' losses: largest rel err {out['dp_loss_rel_err']:.2e} "
+        f"(tol {DP_LOSS_RTOL}); parameters bit-identical on both ranks after every step")
+    log(f"parallel: train_unsupervised 1 epoch x 3 windows (2 groups, one wrap-filled) {r0['walls_s']['train_unsupervised']:.2f} s,"
+        f" loss {r0['history'][0]['loss']:.4f}, identical histories, checkpoints on rank 0 only; sharded davis_evaluation"
+        f" of 3 x 8 frames {r0['walls_s']['davis_evaluation']:.2f} s, J&F {r0['jf']:.4f} (serial {r0['serial_jf']:.4f}),"
+        f" PNG trees byte-identical; sharded run_osvos_for_all_sequences 2 x 4 items"
+        f" {r0['walls_s']['run_osvos_for_all_sequences']:.2f} s, merged JSON equal to serial; pair wall {wall:.1f} s")
+
+
+    # In this process: device-parallel inference over [cuda:0, cuda:0].
+    cuda2 = [torch.device("cuda", 0)] * 2
+    pipe, model = pipeline_mod.build_pipeline(3, 3, hw, dtype=torch.bfloat16, device="cuda", superchunk=SC)
+    pipeline_mod.init_weights(model, seed=0)
+    rng = np.random.default_rng(11)
+    clips = [data.draw_sequence(rng, t, *hw, 2)[0] for t in (20, 11, 6)]
+    with launches_of(ra, out["counts"], "device_parallel_inference", required=(7, 14), tag="parallel"):
+        t0 = time.perf_counter()
+        dp = DeviceParallelInference(pipe, cuda2)
+        got = dp.infer_group(clips[:2]) + dp.infer_group(clips[2:])
+        torch.cuda.synchronize()
+        out["walls_s"]["device_parallel_inference"] = time.perf_counter() - t0
+    for clip, dets in zip(clips, got):
+        want = pipe.infer_sequence(clip)
+        check(len(dets) == len(want) and all(sorted(g) == sorted(w) and all(np.array_equal(g[k], w[k]) for k in w)
+                                             for g, w in zip(dets, want)), "device-parallel detections differ from serial")
+    log(f"parallel: DeviceParallelInference on [cuda:0, cuda:0], clips of 20 + 11 and 6 (wrap-filled) frames: "
+        f"{out['walls_s']['device_parallel_inference']:.2f} s, detections equal to serial bit for bit")
+
+    # Lockstep OSVOS of two members against each member's serial run.
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cfg = osvos.ExperimentConfig(freeze="SF", epochs=1)
+    kw = dict(davis_root=str(workdir / "osvos2"), cfg=cfg, items_per_epoch=4)
+    with launches_of(ra, out["counts"], "lockstep_osvos", tag="parallel"):
+        t0 = time.perf_counter()
+        lock = osvos.train_osvos_sequences_lockstep(
+            pipe, start, sequence_names=["synth00", "synth01"], results_root=str(workdir / "lock"), devices=cuda2, **kw,
+        )
+        torch.cuda.synchronize()
+        out["walls_s"]["lockstep_osvos"] = time.perf_counter() - t0
+    strip = lambda res: {e: {k: v for k, v in r.items() if k != "eval_time"} for e, r in res.items()}  # noqa: E731
+    for name in ("synth00", "synth01"):
+        serial = osvos.train_osvos_sequence(pipe, start, sequence_name=name, results_root=str(workdir / f"serial_{name}"), **kw)
+        check(strip(lock[name]) == strip(serial), f"lockstep member {name} {lock[name]} against serial {serial}")
+    log(f"parallel: lockstep OSVOS of 2 members (SF, 4 items) {out['walls_s']['lockstep_osvos']:.2f} s; "
+        f"each member's results equal to its serial fine-tune")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -1001,15 +1355,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=cuda_build.BUILD_DIR) as workdir:
         cli = phase_cli(ra, data, Path(workdir))
     log(f"cli: phase 8 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_", dir=cuda_build.BUILD_DIR) as workdir:
+        parallel = phase_parallel(ra, pipeline_mod, train_mod, data, Path(workdir))
+    parallel["walls_s"]["phase"] = time.perf_counter() - t0
+    log(f"parallel: phase 9 in {parallel['walls_s']['phase']:.1f} s (two ranks on one card: correctness and "
+        f"overhead, not scaling)")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
         key = ("backward", size) if "backward" in r["name"] else size
         r["drivers_launches"] = {name: c[key] for name, c in drivers["counts"].items()}
         r["cli_launches"] = {name: c[key] for name, c in cli["counts"].items()}
+        r["parallel_launches"] = {name: c[key] if key in c else c[str(key)] for name, c in parallel["counts"].items()}
 
     log(json.dumps({"train_step": {k: train[k] for k in ("step_ms", "step_times_ms", "peak_gib")}}))
     log(json.dumps({"drivers": {k: v for k, v in drivers.items() if k != "counts"}}))
     log(json.dumps({"cli": {k: v for k, v in cli.items() if k != "counts"}}))
+    log(json.dumps({"parallel": {k: v for k, v in parallel.items() if k != "counts"}}))
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1023,4 +1385,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [PARALLEL_WORKER]:
+        sys.exit(parallel_worker(sys.argv[2], sys.argv[3], Path(sys.argv[4])))
     sys.exit(main())

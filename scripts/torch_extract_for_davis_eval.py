@@ -23,7 +23,9 @@ def main(argv=None):
     p.add_argument("--original-hw", type=int, nargs=2, default=(480, 854))
     cli.add_device_argument(p)
     args = p.parse_args(argv)
-    cli.require_single_process()
+    # Multi-process launches (torchrun, SLURM) join the process group here;
+    # a no-op in a single process (the reference's init_distributed_mode).
+    cli.init_distributed(args.device)
 
     from slowfast_vos_tpu_torch.eval.glue import extract_masks
 

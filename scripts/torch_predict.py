@@ -24,7 +24,6 @@ def main(argv=None):
     p.add_argument("--original-hw", type=int, nargs=2, default=(480, 854))
     cli.add_device_argument(p)
     args = p.parse_args(argv)
-    cli.require_single_process()
 
     from slowfast_vos_tpu_torch.eval.visualize import evaluate_with_visualization
 

@@ -29,10 +29,12 @@ def main(argv=None):
     p.add_argument("--tensorboard", action="store_true",
                    help="also write TensorBoard event files (reference train.py:82)")
     p.add_argument("--no-data-parallel", action="store_true",
-                   help="accepted for the JAX CLI's sake; the port's steps are serial")
+                   help="force serial steps on every process even under a multi-process launch")
     cli.add_device_argument(p)
     args = p.parse_args(argv)
-    cli.require_single_process()
+    # Multi-process launches (torchrun, SLURM) join the process group here;
+    # a no-op in a single process (the reference's init_distributed_mode).
+    cli.init_distributed(args.device)
 
     from slowfast_vos_tpu_torch.train.trainer import train_unsupervised
 
@@ -49,6 +51,7 @@ def main(argv=None):
         continue_training=args.continue_training,
         state_dict=model.state_dict(),
         tensorboard=args.tensorboard,
+        data_parallel=False if args.no_data_parallel else None,
     )
     for h in history:
         ev = h["eval"] or {}

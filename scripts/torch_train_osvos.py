@@ -2,8 +2,10 @@
 """OSVOS-style per-sequence online fine-tuning CLI of the PyTorch port (the
 `code/osvos/train_osvos.py` / `run_osvos_for_all_seq.py` /
 `run_osvos_experiments.py` workloads, selected via --mode; the port's
-`scripts/train_osvos.py`). Every mode runs its fine-tunes one after
-another."""
+`scripts/train_osvos.py`). `--mode all` splits the sequences over the
+processes of a multi-process launch, and within a process that sees several
+GPUs runs them in lockstep groups, one fine-tune per GPU; the other modes
+run their fine-tunes one after another."""
 import argparse
 import json
 import os
@@ -33,12 +35,15 @@ def main(argv=None):
     p.add_argument("--original-hw", type=int, nargs=2, default=(480, 854))
     p.add_argument(
         "--parity-exact", action="store_true",
-        help="reference-exact parity mode for J&F-gated runs: the model computes in float32. "
-        "Slower; use for the RUNBOOK 0.5-pt gates.",
+        help="reference-exact parity mode for J&F-gated runs: per-sequence fine-tunes run serially "
+        "(no lockstep groups over the GPUs) and the model computes in float32. Slower; use for the "
+        "RUNBOOK 0.5-pt gates.",
     )
     cli.add_device_argument(p)
     args = p.parse_args(argv)
-    cli.require_single_process()
+    # Multi-process launches (torchrun, SLURM) join the process group here;
+    # a no-op in a single process (the reference's init_distributed_mode).
+    cli.init_distributed(args.device)
 
     import torch
 
@@ -63,6 +68,7 @@ def main(argv=None):
         results = osvos.run_osvos_for_all_sequences(
             pipe, model.state_dict(), davis_root=args.davis_root,
             results_root=args.results_root, output_json=args.output_json, cfg=cfg,
+            device_parallel=False if args.parity_exact else None,
         )
         print(f"wrote {args.output_json}")
         return results

@@ -7,8 +7,6 @@ through `init_model`.
 """
 from __future__ import annotations
 
-import os
-
 
 def add_device_argument(parser) -> None:
     parser.add_argument(
@@ -18,16 +16,14 @@ def add_device_argument(parser) -> None:
     )
 
 
-def require_single_process() -> None:
-    """Raise under a multi-process launch: the port runs serially until its
-    parallel layer lands (ROADMAP.md, queue 1), and every process would
-    otherwise do the same work."""
-    for var in ("WORLD_SIZE", "SLURM_NTASKS"):
-        if int(os.environ.get(var, "1")) > 1:
-            raise RuntimeError(
-                f"{var}={os.environ[var]}: the PyTorch port has no parallel layer yet "
-                "(ROADMAP.md, queue 1); run one process"
-            )
+def init_distributed(device: str) -> bool:
+    """`parallel.distributed.init_distributed_mode` for a CLI that runs on
+    `device`: a no-op returning False in a single process; under a
+    multi-process launch (`torchrun`, SLURM) the process group, on `gloo`
+    for a CPU run and on the default backend otherwise."""
+    from slowfast_vos_tpu_torch.parallel.distributed import init_distributed_mode
+
+    return init_distributed_mode(backend="gloo" if device == "cpu" else None)
 
 
 def build(slow: int, fast: int, original_hw, *, device: str, dtype=None, use_slow_fast: bool = True):

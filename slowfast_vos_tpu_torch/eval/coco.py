@@ -8,12 +8,14 @@ protocol in `eval/scorer.py` is the project's real metric).
 
 Implements the standard protocol: greedy score-ordered matching at each IoU
 threshold in 0.5:0.95:0.05, 101-point interpolated AP, mean over classes.
-Merging per-process shards before scoring (the JAX
-`merge_across_processes`) comes with the port's parallel layer.
+`merge_across_processes` gathers per-process shards of images before
+scoring, as the reference's distributed COCO evaluation does.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from slowfast_vos_tpu_torch.parallel.distributed import all_gather_host
 
 # pycocotools grid, bit-for-bit: np.linspace rounds 0.6 DOWN
 # (0.5999999999999999778) where np.arange(0.5, 1.0, 0.05) rounds it UP
@@ -125,3 +127,30 @@ def coco_map(predictions, ground_truths, *, kind: str = "bbox", classes=None):
             "AP50": float(np.nanmean(ap_table[:, 0])),
             "per_class": per_class,
         }
+
+
+def merge_across_processes(image_ids, predictions, ground_truths):
+    """Merge per-image detection shards from all processes before scoring.
+
+    The reference evaluates COCO metrics distributed: every process
+    accumulates predictions for its shard of images, then the shards are
+    pickled, all-gathered and deduplicated by image id before the final
+    numbers are computed (`code/maskrcnn/coco_eval.py:163-201`,
+    `utils.py:79-119`). Here the shards travel the same way, over the host
+    group (`parallel/distributed.py::all_gather_host`). Duplicate image ids
+    keep their first occurrence in rank order (the lowest rank), in the
+    order of the gathered shards, like the reference's np.unique merge.
+    Single-process: identity.
+
+    image_ids: [B] ints; predictions/ground_truths: parallel length-B lists
+    of per-image dicts of arrays. Returns the merged (image_ids,
+    predictions, ground_truths) lists."""
+    shards = all_gather_host((list(image_ids), list(predictions), list(ground_truths)))
+    if len(shards) == 1:
+        return image_ids, predictions, ground_truths
+    ids = [int(i) for shard in shards for i in shard[0]]
+    preds = [p for shard in shards for p in shard[1]]
+    gts = [g for shard in shards for g in shard[2]]
+    _, first = np.unique(np.asarray(ids, np.int64), return_index=True)
+    keep = np.sort(first)
+    return [ids[i] for i in keep], [preds[i] for i in keep], [gts[i] for i in keep]

@@ -53,6 +53,32 @@ def packbits(x: torch.Tensor) -> torch.Tensor:
     return (bits * weights).sum(dim=-1).to(torch.uint8)
 
 
+def frame_detections(chunk_outputs: list, t: int, width: int, instance_masks: bool = False) -> list[dict[str, Any]]:
+    """The per-frame detection dicts of `infer_sequence` from its chunks'
+    outputs (each a tuple of 5 device tensors with a leading frame axis),
+    fetched to the host at once; the first `t` frames are kept."""
+    fboxes, fscores, flabels, fvalid, fmasks = (
+        torch.cat([outs[i] for outs in chunk_outputs])[:t].cpu().numpy() for i in range(5)
+    )
+    out: list[dict[str, Any]] = []
+    for g in range(t):
+        if instance_masks:
+            union = ((fmasks[g] >= 0.5) & fvalid[g][:, None, None]).any(0)
+        else:
+            union = np.unpackbits(fmasks[g], axis=-1, count=width).astype(bool)
+        det = {
+            "boxes": fboxes[g],
+            "scores": fscores[g],
+            "labels": flabels[g],
+            "valid": fvalid[g],
+            "union_mask": union,
+        }
+        if instance_masks:
+            det["masks"] = fmasks[g]
+        out.append(det)
+    return out
+
+
 class Pipeline:
     """Binds a model and the static geometry of one input resolution."""
 
@@ -190,46 +216,29 @@ class Pipeline:
         [H, W] bool, and with `instance_masks=True` masks [D, H, W], each
         detection's pasted mask probabilities. All outputs stay on the device
         until one fetch at the end."""
-        t = images.shape[0]
-        sc = self.superchunk
-        hl, hr = self.halo_left, self.halo_right
-        w = images.shape[2]
+        t, w = images.shape[0], images.shape[2]
         use_carry = self.sf.fast > 1  # F = 1 has no overlap to carry
         carry = None
         pending = []
-        for c in range(0, t, sc):
-            widxs = np.arange(c - hl, c + sc + hr)
-            in_range = (widxs >= 0) & (widxs < t)
-            idxs = widxs if carry is None else widxs[self.sf.fast - 1 :]
-            window = images[np.clip(idxs, 0, t - 1)].copy()
-            window[~((idxs >= 0) & (idxs < t))] = 0
-            dev_images = torch.from_numpy(window).to(self.device)
-            dev_valid = torch.from_numpy(in_range).to(self.device)
-            outs, next_carry = self._superchunk(dev_images, dev_valid, carry, instance_masks)
+        for c in range(0, t, self.superchunk):
+            outs, next_carry = self.chunk_step(images, c, carry, instance_masks)
             carry = next_carry if use_carry else None
-            pending.append((min(sc, t - c), outs))
+            pending.append(outs)
+        return frame_detections(pending, t, w, instance_masks)
 
-        cat = [torch.cat([p[1][i] for p in pending]).cpu().numpy() for i in range(5)]
-        fboxes, fscores, flabels, fvalid, fmasks = cat
-        out: list[dict[str, Any]] = []
-        for ci, (n, _) in enumerate(pending):
-            for f in range(n):
-                g = ci * sc + f
-                if instance_masks:
-                    union = ((fmasks[g] >= 0.5) & fvalid[g][:, None, None]).any(0)
-                else:
-                    union = np.unpackbits(fmasks[g], axis=-1, count=w).astype(bool)
-                det = {
-                    "boxes": fboxes[g],
-                    "scores": fscores[g],
-                    "labels": flabels[g],
-                    "valid": fvalid[g],
-                    "union_mask": union,
-                }
-                if instance_masks:
-                    det["masks"] = fmasks[g]
-                out.append(det)
-        return out
+    def chunk_step(self, images: np.ndarray, c: int, carry=None, instance_masks: bool = False):
+        """The superchunk of `infer_sequence` that starts at frame `c` of
+        `images` [T, H, W, 3]: its window (the SC new frames after a carry,
+        else with the halo; frames outside [0, T) zero and invalid) through
+        `_superchunk`. Returns (outputs, carry)."""
+        t = images.shape[0]
+        widxs = np.arange(c - self.halo_left, c + self.superchunk + self.halo_right)
+        idxs = widxs if carry is None else widxs[self.sf.fast - 1 :]
+        window = images[np.clip(idxs, 0, t - 1)].copy()
+        window[~((idxs >= 0) & (idxs < t))] = 0
+        dev_images = torch.from_numpy(window).to(self.device)
+        dev_valid = torch.from_numpy((widxs >= 0) & (widxs < t)).to(self.device)
+        return self._superchunk(dev_images, dev_valid, carry, instance_masks)
 
 
 def build_pipeline(

@@ -58,6 +58,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 from typing import Sequence
 
 import torch
@@ -68,8 +69,15 @@ ROI_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 
 # Kernel launches: the forward's by output size (7, 14), the backward's by
 # ("backward", output size); `chip_smoke.py` reads them to show that the
-# main path went through the kernels.
+# main path went through the kernels. Member threads (`parallel/mesh.py::
+# on_members`) launch concurrently, so each count is taken under a lock.
 launches: collections.Counter = collections.Counter()
+_launches_lock = threading.Lock()
+
+
+def _count_launch(key) -> None:
+    with _launches_lock:
+        launches[key] += 1
 
 
 def fpn_level_assignment(
@@ -376,7 +384,7 @@ def launch_kernel(
         )
     if rc != 0:
         raise RuntimeError(f"roi_align kernel launch failed: {lib.sfvos_cuda_error_string(rc).decode()}")
-    launches[output_size] += 1
+    _count_launch(output_size)
     return out
 
 
@@ -458,7 +466,7 @@ def launch_backward(
         )
     if rc != 0:
         raise RuntimeError(f"roi_align backward kernel launch failed: {lib.sfvos_cuda_error_string(rc).decode()}")
-    launches["backward", output_size] += 1
+    _count_launch(("backward", output_size))
     return grads
 
 

@@ -247,6 +247,15 @@ class Trainer:
         """One call: loss and gradient of the window in train mode, and an
         optimizer step on every `accumulate`-th call. Returns the metrics
         (`train_step.py:318-325`) as 0-d tensors on the device."""
+        metrics = self.accumulate_gradient(batch, draws)
+        if self.calls % self.accumulate == 0:
+            self.apply_update()
+        return metrics
+
+    def accumulate_gradient(self, batch: dict, draws: dict | None = None) -> dict[str, torch.Tensor]:
+        """The first half of `step`: the loss and its gradient (divided by
+        `accumulate`, added to the parameters' `.grad`) in train mode, the
+        SlowFast running statistics updated, the call counted."""
         if draws is None:
             draws = self.make_draws(int(batch["boxes"].shape[1]))
         self.model.train()
@@ -256,12 +265,15 @@ class Trainer:
         finally:
             self.model.eval()
         self.calls += 1
-        if self.calls % self.accumulate == 0:
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            if self.scheduler is not None:
-                self.scheduler.step()
         return metrics
+
+    def apply_update(self) -> None:
+        """The second half of `step`: the optimizer step on the accumulated
+        gradient, which it then clears, and the schedule's step."""
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.scheduler is not None:
+            self.scheduler.step()
 
     def eval_state_dict(self) -> dict[str, torch.Tensor]:
         """A copy of the model's state dict (weights and the SlowFast running

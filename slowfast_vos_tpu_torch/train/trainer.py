@@ -1,10 +1,11 @@
 """Unsupervised VOS training driver.
 
-The port's copy of the serial path of `slowfast_vos_tpu/train/trainer.py`,
-a rebuild of the reference `code/train.py:49-121`: train on DAVIS-2017
-train sequences, SGD(1e-3, momentum 0.9, wd 1e-4) with effective 2-frame
-steps, a DAVIS-2016 val evaluation before training and after every epoch,
-best/last/resumable checkpoints and scalar metrics logging.
+The port of `slowfast_vos_tpu/train/trainer.py`, a rebuild of the
+reference `code/train.py:49-121`: train on DAVIS-2017 train sequences,
+SGD(1e-3, momentum 0.9, wd 1e-4) with effective 2-frame steps, a DAVIS-2016
+val evaluation before training and after every epoch, best/last/resumable
+checkpoints and scalar metrics logging; serially in one process, or data
+parallel over the ranks of a process group (`parallel/sharded.py`).
 
 The `Trainer` trains `pipe.model` in place and leaves it in eval mode, so
 the evaluation runs the same `Pipeline`. The samplers' draws come from the
@@ -21,6 +22,8 @@ from slowfast_vos_tpu_torch.data.davis import DavisIndex, load_sequence
 from slowfast_vos_tpu_torch.data.windows import train_windows
 from slowfast_vos_tpu_torch.eval.glue import davis_evaluation
 from slowfast_vos_tpu_torch.models.pipeline import Pipeline, init_weights
+from slowfast_vos_tpu_torch.parallel.distributed import get_world_size, is_main_process, local_batch_slice, save_on_master
+from slowfast_vos_tpu_torch.parallel.sharded import make_sharded_train_step, replicate_state
 from slowfast_vos_tpu_torch.train.train_step import Trainer
 from slowfast_vos_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from slowfast_vos_tpu_torch.utils.metrics import MetricsLogger
@@ -45,6 +48,24 @@ def finite_loss(metrics: dict) -> float:
     return loss
 
 
+def wrap_filled_groups(windows, size: int):
+    """Yield (group, n_real): consecutive groups of `size` windows, the last
+    one wrap-filled with the first windows of the stream when it falls
+    short (DistributedSampler's even padding); n_real counts the windows
+    that are not fill."""
+    group, fill = [], []
+    for w in windows:
+        group.append(w)
+        if len(fill) < size - 1:
+            fill.append(w)
+        if len(group) == size:
+            yield group, size
+            group = []
+    if group:
+        n_real = len(group)
+        yield group + [fill[i % len(fill)] for i in range(size - n_real)], n_real
+
+
 def train_unsupervised(
     pipe: Pipeline,
     *,
@@ -61,9 +82,23 @@ def train_unsupervised(
     max_windows_per_epoch: int | None = None,
     state_dict: dict | None = None,
     tensorboard: bool = False,
+    data_parallel: bool | None = None,
 ):
     """Train `pipe.model` in place. Returns (the `Trainer`, the history list
     of per-epoch dicts {epoch, loss, eval}).
+
+    `data_parallel` (default: on when the process group has more than one
+    rank) drives the data-parallel step (`parallel/sharded.py`): each
+    optimizer step consumes one window per rank, with gradients, metrics
+    and SlowFast's running statistics averaged, the production analogue of
+    the reference's DDP wrap (`code/maskrcnn/train.py:102`). Every rank
+    reads the epoch's windows in the same order and takes its own window of
+    each group of world-size windows (`local_batch_slice`). A trailing
+    group smaller than the world is wrap-filled with windows from the start
+    of the epoch, torch DistributedSampler's padding convention
+    (`train.py:73-74`); the epoch loss sums each group's mean loss times
+    its real windows. Only rank 0 writes checkpoints and logs; the
+    evaluation is sharded over the ranks (`eval/glue.py`).
 
     `state_dict` holds the starting weights (None: seeded random weights).
     `continue_training` restores `<output_dir>/ckpt_last.pt` (weights,
@@ -74,11 +109,17 @@ def train_unsupervised(
     start_weights(pipe.model, state_dict, seed)
     trainer = Trainer(pipe, lr=lr, seed=seed)
     start_epoch = 0
+    if data_parallel is None:
+        data_parallel = get_world_size() > 1
+    group_size = get_world_size() if data_parallel else 1
 
     last_path = os.path.join(output_dir, "ckpt_last.pt")
     best_path = os.path.join(output_dir, "ckpt_best.pt")
     if continue_training and os.path.exists(last_path):
         start_epoch = restore_checkpoint(last_path, trainer).get("epoch", 0) + 1
+    if data_parallel:
+        replicate_state(pipe.model)
+    step = make_sharded_train_step(trainer) if data_parallel else trainer.step
 
     index = DavisIndex(train_root, "train", year=train_year)
     model_name = f"slowfast_{pipe.sf.slow}-{pipe.sf.fast}"
@@ -107,7 +148,8 @@ def train_unsupervised(
 
     history = []
     best_jf = -1.0
-    with MetricsLogger(os.path.join(output_dir, "logs"), "train", tensorboard=tensorboard) as logger:
+    with MetricsLogger(os.path.join(output_dir, "logs"), "train", tensorboard=tensorboard,
+                       enabled=is_main_process()) as logger:
         # Sanity eval before training, as the reference does (train.py:95-96).
         pre = run_eval()
         if pre is not None:
@@ -116,24 +158,27 @@ def train_unsupervised(
         global_step = 0
         for epoch in range(start_epoch, epochs):
             epoch_loss = 0.0
-            # Decode and pack the next windows on a background thread while
-            # the device steps; the order, and so the trajectory, is unchanged.
-            with prefetch(epoch_windows(), depth=2) as batches:
-                for batch in batches:
-                    loss = finite_loss(trainer.step(batch))
-                    epoch_loss += loss
+            # One optimizer step per group: a window per rank, or one window
+            # when serial. The next windows are decoded and packed on a
+            # background thread while the device steps; the order, and so
+            # the trajectory, is unchanged.
+            with prefetch(epoch_windows(), depth=group_size + 1) as batches:
+                for group, n_real in wrap_filled_groups(batches, group_size):
+                    (batch,) = group[local_batch_slice(group_size)] if data_parallel else group
+                    loss = finite_loss(step(batch))  # the mean over the group
+                    epoch_loss += loss * n_real  # the sum over windows
                     logger.scalar("train/batch_loss", loss, global_step)
                     global_step += 1
 
             logger.scalar("train/epoch_loss", epoch_loss, epoch)
             ev = run_eval()
             history.append({"epoch": epoch, "loss": epoch_loss, "eval": ev})
-            save_checkpoint(last_path, trainer, meta={"epoch": epoch})
+            save_on_master(save_checkpoint, last_path, trainer, meta={"epoch": epoch})
             if ev is not None:
                 logger.scalars({"jf": ev["jf"], "time": ev["wall"]}, epoch, prefix="eval/")
                 if ev["jf"] > best_jf:
                     best_jf = ev["jf"]
-                    save_checkpoint(best_path, trainer, meta={"epoch": epoch, "jf": ev["jf"]})
+                    save_on_master(save_checkpoint, best_path, trainer, meta={"epoch": epoch, "jf": ev["jf"]})
             else:
-                save_checkpoint(best_path, trainer, meta={"epoch": epoch})
+                save_on_master(save_checkpoint, best_path, trainer, meta={"epoch": epoch})
     return trainer, history

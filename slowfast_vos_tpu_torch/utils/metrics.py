@@ -7,7 +7,8 @@ imported (`helpers/constants.py:14-15`). Here: an append-only JSON-lines
 file (one object per scalar, tagged with step and wall time), plus an
 optional TensorBoard event-file sink (`tensorboard=True`, which imports
 `torch.utils.tensorboard` only then); a fresh run writes new files instead
-of deleting history.
+of deleting history. `enabled=False` makes a logger that writes nothing
+(the ranks other than 0 of a data-parallel run).
 """
 from __future__ import annotations
 
@@ -17,11 +18,14 @@ import time
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str, run_name: str = "run", tensorboard: bool = False):
+    def __init__(self, log_dir: str, run_name: str = "run", tensorboard: bool = False, enabled: bool = True):
+        self.enabled = enabled
+        self._tb = self._f = None
+        if not enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         stamp = time.strftime("%Y%m%d-%H%M%S")
         self.path = os.path.join(log_dir, f"{run_name}-{stamp}.jsonl")
-        self._tb = None
         if tensorboard:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -29,6 +33,8 @@ class MetricsLogger:
         self._f = open(self.path, "a")
 
     def scalar(self, tag: str, value, step: int):
+        if not self.enabled:
+            return
         self._f.write(
             json.dumps({"tag": tag, "value": float(value), "step": int(step), "time": time.time()})
             + "\n"
@@ -42,7 +48,8 @@ class MetricsLogger:
             self.scalar(prefix + k, v, step)
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._tb is not None:
             self._tb.close()
 

@@ -10,15 +10,18 @@ extraction of the results tree and the standalone scorer on it (the same
 J&F as the evaluation), the overlay dump, an OSVOS fine-tune of 2 items (one update), and the
 OSVOS run over every sequence.
 Also: the CLIs run on the card unless asked for the CPU and raise without
-one, refuse a multi-process launch, and the benchmark exits non-zero
-without CUDA."""
+one, join a process group of one under a launcher's one-process world, and
+the benchmark exits non-zero without CUDA."""
+import builtins
 import functools
 import json
 import os
+import socket
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from torch_port_common import TINY_CFG, TINY_HW
 from scripts import (
@@ -148,10 +151,34 @@ def test_entry_points_need_the_card_unless_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("var", ["WORLD_SIZE", "SLURM_NTASKS"])
-def test_multi_process_launch_raises(var, tmp_path, monkeypatch):
-    monkeypatch.setenv(var, "2")
-    with pytest.raises(RuntimeError, match="no parallel layer"):
-        torch_train.main(["--train-root", str(tmp_path), *CPU])
+def test_one_process_world_joins_a_group_of_one(var, chain, monkeypatch):
+    """Under a launcher's one-process world (torchrun's RANK / WORLD_SIZE,
+    or a SLURM step of one task) the CLI joins a `gloo` group of one
+    (`--device cpu`) and evaluates as the chain did. The two-process run of
+    this CLI is in `tests/test_torch_parallel_eval.py`."""
+    for name in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS", "SLURM_NODELIST", "SLURM_STEP_NODELIST"):
+        monkeypatch.delenv(name, raising=False)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        monkeypatch.setenv("MASTER_PORT", str(sock.getsockname()[1]))
+    if var == "WORLD_SIZE":
+        monkeypatch.setenv("WORLD_SIZE", "1")
+        monkeypatch.setenv("RANK", "0")
+    else:
+        monkeypatch.setenv("SLURM_NTASKS", "1")
+        monkeypatch.setenv("SLURM_PROCID", "0")
+        monkeypatch.setenv("SLURM_NODELIST", "127.0.0.1")
+    monkeypatch.setattr(cli, "build", tiny_build)
+    monkeypatch.setattr(builtins, "print", builtins.print)  # the group gates printing; undone after
+    work = chain["work"]
+    try:
+        out = torch_evaluate.main(["--davis-root", chain["eval_root"], "--checkpoint", str(work / "un" / "ckpt_best.pt"),
+                                   "--results-root", str(work / f"res_{var}"), *MODEL, *CPU])
+        assert dist.is_initialized() and dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert out["summary"] == chain["evaluate"]["summary"]
 
 
 def test_bench_exits_non_zero_without_cuda(monkeypatch, capsys):
