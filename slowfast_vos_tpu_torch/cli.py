@@ -55,5 +55,6 @@ def init_model(model, seed: int, checkpoint: str | None) -> dict | None:
     print(
         f"converted {report['converted']} tensors from {checkpoint}; "
         f"{len(report['unused_source_keys'])} unused; {len(report['untouched'])} left at init"
+        + "".join(f"; {key} remapped to the model's stem" for key in report["migrated"])
     )
     return report

@@ -16,7 +16,10 @@ superchunk of SC frames plus the F-1 temporal halo runs
 
 `infer_sequence` streams a clip through superchunks. After the first, each
 chunk computes the backbone for its SC new frames only and carries the F-1
-overlap frames' features over from the previous chunk. With
+overlap frames' features over from the previous chunk. Its frames reach the
+device as RGB (`transport="rgb"`, the default) or as YUV 4:2:0 planes
+(`"yuv420"`, half the bytes, decoded on the device by
+`ImageTransform.from_yuv420`); `forward_superchunk` takes either form. With
 `instance_masks=True` it returns each detection's pasted mask probabilities
 as well (JAX `_finalize_instances_impl`). `compute_sequence_features` runs
 only the frozen backbone and the RPN over a sequence (the proposal dump of
@@ -36,11 +39,12 @@ from slowfast_vos_tpu_torch.models.layers import lecun_normal_
 from slowfast_vos_tpu_torch.models.resnet_fpn import FPN_STRIDES
 from slowfast_vos_tpu_torch.models.rpn import filter_proposals
 from slowfast_vos_tpu_torch.models.segmentation import SlowFastMaskRCNN
-from slowfast_vos_tpu_torch.models.transform import ImageTransform
+from slowfast_vos_tpu_torch.models.transform import ImageTransform, rgb_to_yuv420
 from slowfast_vos_tpu_torch.ops.paste_masks import paste_masks_in_image
 from slowfast_vos_tpu_torch.ops.roi_align import ROI_SCALES, multiscale_roi_align
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+TRANSPORTS = ("rgb", "yuv420")
 
 
 def packbits(x: torch.Tensor) -> torch.Tensor:
@@ -161,9 +165,14 @@ class Pipeline:
 
     def _superchunk(self, images, feat_valid, carry=None, instance_masks=False):
         """images: [SC + F - 1, H0, W0, 3] (no carry) or the SC new frames
-        (carry: 5 levels [F-1, h, w, 256] of the overlap frames);
-        feat_valid: [SC + F - 1] for the full window."""
-        feats = self.model.backbone_feats(self.transform(images))
+        (carry: 5 levels [F-1, h, w, 256] of the overlap frames), or the
+        same frames as a (y, uv) tuple of YUV 4:2:0 planes; feat_valid:
+        [SC + F - 1] for the full window."""
+        if isinstance(images, tuple):
+            canvas = self.transform.from_yuv420(*images)
+        else:
+            canvas = self.transform(images)
+        feats = self.model.backbone_feats(canvas)
         if carry is not None:
             feats = [torch.cat([cf, nf]) for cf, nf in zip(carry, feats)]
         sc = feats[0].shape[0] - (self.sf.fast - 1)
@@ -173,11 +182,16 @@ class Pipeline:
     def forward_superchunk(self, images: torch.Tensor, feat_valid: torch.Tensor):
         """Public full-pipeline forward on one superchunk.
 
-        images: [SC + F - 1, H0, W0, 3] uint8/float (halo frames included);
+        images: [SC + F - 1, H0, W0, 3] uint8/float (halo frames included),
+        or those frames as a (y [SC + F - 1, H0, W0], uv [SC + F - 1, H0/2,
+        W0/2, 2]) tuple of uint8 YUV 4:2:0 planes (`rgb_to_yuv420`);
         feat_valid: [SC + F - 1] bool (False for zero halo frames beyond the
         sequence ends). Returns (orig_boxes [SC, D, 4], scores [SC, D],
         labels [SC, D], valid [SC, D], packed union masks [SC, H0, ceil(W0/8)])."""
-        images = torch.as_tensor(images, device=self.device)
+        if isinstance(images, tuple):
+            images = tuple(torch.as_tensor(p, device=self.device) for p in images)
+        else:
+            images = torch.as_tensor(images, device=self.device)
         feat_valid = torch.as_tensor(feat_valid, dtype=torch.bool, device=self.device)
         return self._superchunk(images, feat_valid)[0]
 
@@ -208,36 +222,50 @@ class Pipeline:
         return feats_padded, torch.cat(prop_parts), torch.cat(pvalid_parts)
 
     @torch.inference_mode()
-    def infer_sequence(self, images: np.ndarray, *, instance_masks: bool = False) -> list[dict[str, Any]]:
+    def infer_sequence(
+        self, images: np.ndarray, *, instance_masks: bool = False, transport: str = "rgb"
+    ) -> list[dict[str, Any]]:
         """Full-sequence inference at original resolution.
 
         images: [T, H, W, 3] uint8 (or float32 in [0,1]). Returns one dict per
         frame: boxes [D, 4], scores [D], labels [D], valid [D], union_mask
         [H, W] bool, and with `instance_masks=True` masks [D, H, W], each
         detection's pasted mask probabilities. All outputs stay on the device
-        until one fetch at the end."""
+        until one fetch at the end. `transport="yuv420"` uploads each window
+        as YUV 4:2:0 planes (uint8 frames with even H, W): half the bytes,
+        with 4:2:0 chroma, so its pixels differ from "rgb"'s."""
         t, w = images.shape[0], images.shape[2]
         use_carry = self.sf.fast > 1  # F = 1 has no overlap to carry
         carry = None
         pending = []
         for c in range(0, t, self.superchunk):
-            outs, next_carry = self.chunk_step(images, c, carry, instance_masks)
+            outs, next_carry = self.chunk_step(images, c, carry, instance_masks, transport)
             carry = next_carry if use_carry else None
             pending.append(outs)
         return frame_detections(pending, t, w, instance_masks)
 
-    def chunk_step(self, images: np.ndarray, c: int, carry=None, instance_masks: bool = False):
-        """The superchunk of `infer_sequence` that starts at frame `c` of
-        `images` [T, H, W, 3]: its window (the SC new frames after a carry,
-        else with the halo; frames outside [0, T) zero and invalid) through
-        `_superchunk`. Returns (outputs, carry)."""
+    def chunk_inputs(self, images: np.ndarray, c: int, carried: bool, transport: str = "rgb"):
+        """The device inputs of the superchunk that starts at frame `c` of
+        `images` [T, H, W, 3]: its window (the SC new frames when the overlap
+        is `carried`, else with the halo; frames outside [0, T) zero) in
+        `transport` form, and feat_valid over the full window."""
+        if transport not in TRANSPORTS:
+            raise ValueError(f"transport must be one of {TRANSPORTS}, not {transport!r}")
         t = images.shape[0]
         widxs = np.arange(c - self.halo_left, c + self.superchunk + self.halo_right)
-        idxs = widxs if carry is None else widxs[self.sf.fast - 1 :]
+        idxs = widxs[self.sf.fast - 1 :] if carried else widxs
         window = images[np.clip(idxs, 0, t - 1)].copy()
         window[~((idxs >= 0) & (idxs < t))] = 0
-        dev_images = torch.from_numpy(window).to(self.device)
-        dev_valid = torch.from_numpy((widxs >= 0) & (widxs < t)).to(self.device)
+        if transport == "yuv420":
+            dev_images = tuple(torch.from_numpy(p).to(self.device) for p in rgb_to_yuv420(window))
+        else:
+            dev_images = torch.from_numpy(window).to(self.device)
+        return dev_images, torch.from_numpy((widxs >= 0) & (widxs < t)).to(self.device)
+
+    def chunk_step(self, images: np.ndarray, c: int, carry=None, instance_masks: bool = False, transport: str = "rgb"):
+        """The superchunk of `infer_sequence` that starts at frame `c` of
+        `images` [T, H, W, 3] through `_superchunk`. Returns (outputs, carry)."""
+        dev_images, dev_valid = self.chunk_inputs(images, c, carry is not None, transport)
         return self._superchunk(dev_images, dev_valid, carry, instance_masks)
 
 
@@ -252,6 +280,7 @@ def build_pipeline(
     max_size: int = 1333,
     cfg: DetectionConfig | None = None,
     use_slow_fast: bool = True,
+    s2d_stem: bool = False,
     device: str | torch.device | None = None,
     **kw,
 ) -> tuple[Pipeline, SlowFastMaskRCNN]:
@@ -259,12 +288,13 @@ def build_pipeline(
     absent unless the caller asks for "cpu"). Parameters are float32 and
     compute runs in `dtype`. Weights are torch's default init until the
     caller loads a state dict or calls `init_weights`. `use_slow_fast=False`
-    builds the plain per-frame Mask R-CNN (no SlowFast module)."""
+    builds the plain per-frame Mask R-CNN (no SlowFast module);
+    `s2d_stem=True` the space-to-depth stem (`models/resnet_fpn.py`)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_pipeline: CUDA is not available; pass device='cpu' to run on the CPU")
     cfg = cfg or DetectionConfig(num_classes=num_classes)
-    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype, use_slow_fast).to(device)
+    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype, use_slow_fast, s2d_stem).to(device)
     transform = ImageTransform(original_hw, min_size=min_size, max_size=max_size)
     return Pipeline(model, transform, **kw), model
 

@@ -8,7 +8,9 @@ the reference's names, less its `maskrcnn_model.` prefix: a reference
 that prefix and keeps tensors the file lacks at their init.
 With `use_slow_fast=False` (the Mask R-CNN fine-tune, JAX
 `segmentation.py:40,63-69`) there is no SlowFast module: the RoI heads take
-the raw FPN levels, and the state dict is a plain Mask R-CNN's.
+the raw FPN levels, and the state dict is a plain Mask R-CNN's. With
+`s2d_stem=True` the backbone's conv1 is the space-to-depth stem's
+([64, 12, 4, 4], under the same name `backbone.body.conv1.weight`).
 Orchestration lives in `pipeline.py` (inference) and `train/train_step.py`
 (training). Only the SlowFast module behaves differently in train mode
 (its BatchNorms); the frozen backbone's are buffers.
@@ -37,11 +39,12 @@ class SlowFastMaskRCNN(nn.Module):
         sf: SlowFastConfig = SlowFastConfig(),
         dtype: torch.dtype = torch.bfloat16,
         use_slow_fast: bool = True,
+        s2d_stem: bool = False,
     ):
         super().__init__()
         self.cfg, self.sf, self.dtype = cfg, sf, dtype
         self.use_slow_fast = use_slow_fast
-        self.backbone = ResNet50FPN(dtype)
+        self.backbone = ResNet50FPN(dtype, s2d_stem)
         self.rpn = RegionProposalNetwork()
         self.roi_heads = RoIHeads(cfg.num_classes, dtype)
         if use_slow_fast:

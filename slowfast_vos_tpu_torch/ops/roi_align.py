@@ -1,7 +1,8 @@
 """Multi-scale RoIAlign over FPN levels: the CUDA kernel and its plain version.
 
 Port of `slowfast_vos_tpu/ops/roi_align.py` (`fpn_level_assignment`,
-`multiscale_roi_align`) and of the Pallas TPU kernel that carried the
+`multiscale_roi_align`, and the single-map `roi_align`, plain PyTorch as in
+JAX) and of the Pallas TPU kernel that carried the
 1000-proposal 7x7 pool there, `slowfast_vos_tpu/ops/roi_align_pallas.py::_kernel`.
 Semantics are torchvision's `aligned=False`: roi coordinates scaled with no
 half-pixel offset, roi sides floored at 1, 2x2 bilinear samples per bin
@@ -521,3 +522,23 @@ def multiscale_roi_align(
     if rois.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no RoIAlign for device {rois.device}")
     return _Pool.apply(rois, tuple(spatial_scales), output_size, sampling_ratio, *feats)
+
+
+def roi_align(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    spatial_scale: float,
+    *,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """RoIAlign on a single feature map (JAX `roi_align.py:65-101`, a plain
+    gather there too): `multiscale_roi_align_plain` with one level, in plain
+    PyTorch on any device, differentiable by autograd.
+
+    feat: [H, W, C] (channels-last); rois: [N, 4] XYXY in image coordinates;
+    spatial_scale: the map's stride reciprocal (0.25 for P2). Returns
+    [N, out, out, C] in the feature dtype."""
+    return multiscale_roi_align_plain(
+        [feat[None]], rois[None], (spatial_scale,), output_size=output_size, sampling_ratio=sampling_ratio
+    )[0]

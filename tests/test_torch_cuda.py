@@ -1,6 +1,7 @@
 """The PyTorch port's checks that need the card: the RoIAlign kernel and
-its backward against their plain versions, and the level assignment on the
-card against the CPU's.
+its backward against their plain versions, the level assignment on the
+card against the CPU's, the YUV 4:2:0 decode on the card against the CPU's,
+and the blocked NMS sweep on the card against the fixpoint.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 from torch_roi_cases import boundary_rois, clustered_batch, cuda_device, edge_case_batch  # noqa: F401 (fixture)
+from slowfast_vos_tpu_torch.models.transform import ImageTransform
+from slowfast_vos_tpu_torch.ops import nms as pnms
 from slowfast_vos_tpu_torch.ops import roi_align as pra
 
 
@@ -135,3 +138,34 @@ def test_level_assignment_on_the_card_matches_cpu(cuda_device):
     """At the level boundaries the card must divide as the CPU does."""
     rois = boundary_rois()
     torch.testing.assert_close(pra.fpn_level_assignment(rois.to(cuda_device)).cpu(), pra.fpn_level_assignment(rois))
+
+
+@pytest.mark.cuda
+def test_from_yuv420_on_the_card_matches_cpu(cuda_device):
+    """The same uint8 planes decoded on the card and on the CPU, f32 (the
+    resize tolerance of tests/test_torch_models.py, atol 1e-4)."""
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(rng.integers(0, 256, (3, 120, 200), dtype=np.uint8))
+    uv = torch.from_numpy(rng.integers(0, 256, (3, 60, 100, 2), dtype=np.uint8))
+    tf = ImageTransform((120, 200), min_size=128, max_size=256)
+    got = tf.from_yuv420(y.to(cuda_device), uv.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), tf.from_yuv420(y, uv), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_blocked_nms_on_the_card_matches_fixpoint(cuda_device):
+    """Blocked sweep (B = 128, a ragged last block) on the card against the
+    fixpoint on the card and on the CPU, index for index, on quantized
+    boxes and scores (ties across block boundaries), two problems."""
+    rng = np.random.default_rng(8)
+    n = 1500
+    xy = rng.uniform(0, 400, (2, n, 2))
+    boxes = np.round(np.concatenate([xy, xy + rng.uniform(4, 80, (2, n, 2))], -1) / 8) * 8
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    scores = torch.from_numpy((np.round(rng.uniform(0, 1, (2, n)) * 16) / 16).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(2, n)) > 0.1)
+    want = pnms.nms_mask(boxes, scores, valid, iou_threshold=0.7, algorithm="fixpoint")
+    on_card = [b.to(cuda_device) for b in (boxes, scores, valid)]
+    for algorithm in ("blocked", "fixpoint"):
+        keep, order = pnms.nms_mask(*on_card, iou_threshold=0.7, algorithm=algorithm)
+        assert torch.equal(order.cpu(), want[1]) and torch.equal(keep.cpu(), want[0]), algorithm

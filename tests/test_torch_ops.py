@@ -1,8 +1,8 @@
 """Parity of the PyTorch port's ops (`slowfast_vos_tpu_torch/ops/`) with the
 JAX package on the same seeded inputs: boxes, anchors, NMS and top-k
-(index-exact, on tie-heavy inputs), the multi-scale RoIAlign's plain version
-(against the JAX gather and the Pallas kernel in interpret mode) and the
-mask paste, and the pool's plain backward (against `jax.vjp` of the JAX
+(index-exact, on tie-heavy inputs; the fixpoint and the blocked sweep), the
+multi-scale RoIAlign's plain version (against the JAX gather and the Pallas
+kernel in interpret mode), the single-map RoIAlign and the mask paste, and the pool's plain backward (against `jax.vjp` of the JAX
 package's custom-VJP pool and against autograd through the plain forward).
 The CUDA kernels' own checks, which need the card, are in
 `test_torch_cuda.py`."""
@@ -20,6 +20,7 @@ from slowfast_vos_tpu.ops import nms as jnms
 from slowfast_vos_tpu.ops.paste_masks import paste_masks_in_image as jax_paste
 from slowfast_vos_tpu.ops.roi_align import fpn_level_assignment as jax_levels
 from slowfast_vos_tpu.ops.roi_align import multiscale_roi_align as jax_roi_align
+from slowfast_vos_tpu.ops.roi_align import roi_align as jax_single_roi_align
 from slowfast_vos_tpu.ops.roi_align_mm import _interp_matrix_1d as jax_interp_matrix_1d
 from slowfast_vos_tpu.ops.roi_align_mm import multiscale_roi_align_mmgrad
 from slowfast_vos_tpu.ops.roi_align_pallas import multiscale_roi_align_pallas
@@ -110,6 +111,81 @@ def test_batched_nms_and_top_k_index_exact():
         jidx, jok = jnms.top_k_after_nms(jkeep, jorder, scores, k)
         np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
         np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+
+
+def _tie_heavy(rng, n, quantum=8.0):
+    boxes = random_boxes(rng, n, quantum=quantum)
+    scores = (np.round(rng.uniform(0, 1, n) * 8) / 8).astype(np.float32)
+    return boxes, scores, rng.uniform(size=n) > 0.1
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+def test_blocked_nms_index_exact(thr):
+    """The blocked sweep at N = 300, B = 128 (a ragged last block padded with
+    invalid boxes) on quantized boxes and scores (duplicates, equal scores
+    across block boundaries, IoU ties): keep and order equal JAX's
+    `algorithm="blocked"` and the port's fixpoint, index for index."""
+    boxes, scores, valid = _tie_heavy(np.random.default_rng(11), 300)
+    keep, order = pnms.nms_mask(t(boxes), t(scores), t(valid), iou_threshold=thr, algorithm="blocked")
+    jkeep, jorder = jnms.nms_mask(boxes, scores, valid, iou_threshold=thr, block_size=128, algorithm="blocked")
+    fkeep, forder = pnms.nms_mask(t(boxes), t(scores), t(valid), iou_threshold=thr, algorithm="fixpoint")
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    assert torch.equal(order, forder) and torch.equal(keep, fkeep)
+    assert 0 < keep.sum() < valid.sum()
+
+
+def test_blocked_nms_batched_over_leading_dims_equals_per_problem():
+    """Leading batch dims through the blocked sweep (B = 64, N = 150: two
+    full blocks and a ragged one) against JAX's blocked NMS per problem."""
+    rng = np.random.default_rng(12)
+    boxes = np.stack([random_boxes(rng, 150, quantum=4.0) for _ in range(6)]).reshape(2, 3, 150, 4)
+    scores = (np.round(rng.uniform(0, 1, (2, 3, 150)) * 16) / 16).astype(np.float32)
+    valid = rng.uniform(size=(2, 3, 150)) > 0.1
+    keep, order = pnms.nms_mask(t(boxes), t(scores), t(valid), iou_threshold=0.7, block_size=64, algorithm="blocked")
+    for i in range(2):
+        for j in range(3):
+            jk, jo = jnms.nms_mask(boxes[i, j], scores[i, j], valid[i, j], iou_threshold=0.7, block_size=64, algorithm="blocked")
+            np.testing.assert_array_equal(keep[i, j].numpy(), np.asarray(jk))
+            np.testing.assert_array_equal(order[i, j].numpy(), np.asarray(jo))
+
+
+def test_nms_auto_takes_the_blocked_sweep_above_the_fixpoint_limit(monkeypatch):
+    """"auto" (the default of `nms_mask` and `batched_nms_mask`) runs the
+    fixpoint up to `FIXPOINT_MAX_N` boxes and the blocked sweep above, with
+    the same answer as JAX's "auto", which at this N is its fixpoint."""
+    calls = []
+    blocked = pnms._nms_blocked
+    monkeypatch.setattr(pnms, "_nms_blocked", lambda *a: calls.append(a[-1]) or blocked(*a))
+    rng = np.random.default_rng(13)
+    boxes, scores, valid = _tie_heavy(rng, 200, quantum=6.0)
+    labels = rng.integers(1, 4, 200).astype(np.int32)
+    jkeep, _ = jnms.batched_nms_mask(boxes, scores, labels, valid, iou_threshold=0.5)
+    keep, _ = pnms.batched_nms_mask(t(boxes), t(scores), t(labels), t(valid), iou_threshold=0.5)
+    assert calls == []
+    monkeypatch.setattr(pnms, "FIXPOINT_MAX_N", 199)
+    bkeep, _ = pnms.batched_nms_mask(t(boxes), t(scores), t(labels), t(valid), iou_threshold=0.5, block_size=32)
+    assert calls == [32]
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    assert torch.equal(bkeep, keep)
+
+
+def test_nms_rejects_an_unknown_algorithm():
+    with pytest.raises(ValueError, match="algorithm"):
+        pnms.nms_mask(torch.zeros(3, 4), torch.zeros(3), algorithm="greedy")
+
+
+@pytest.mark.parametrize("out_size,scale", [(7, 1 / 4), (14, 1 / 8)])
+def test_single_map_roi_align_matches_jax(out_size, scale):
+    """`ops.roi_align.roi_align` on one [H, W, C] map against JAX's
+    `roi_align` (the same gather; f32 sum order only: atol 1e-5)."""
+    rng = np.random.default_rng(14)
+    feat = rng.normal(size=(int(192 * scale), int(336 * scale), 8)).astype(np.float32)
+    rois = _rois(rng, 24)
+    got = pra.roi_align(t(feat), t(rois), scale, output_size=out_size)
+    want = np.asarray(jax_single_roi_align(jnp.asarray(feat), jnp.asarray(rois), scale, output_size=out_size))
+    assert got.shape == want.shape == (len(rois), out_size, out_size, 8)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
 def test_paste_masks_matches_jax():

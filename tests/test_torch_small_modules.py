@@ -101,7 +101,7 @@ def test_reference_pth_loads_with_no_unused_key(jax_side, tmp_path):
     pipe, model = port_pipeline()
     report = load_init(path, model)
     counted = [k for k in sd if "num_batches_tracked" not in k]
-    assert report == {"converted": len(counted), "unused_source_keys": [], "untouched": []}
+    assert report == {"converted": len(counted), "unused_source_keys": [], "untouched": [], "migrated": []}
     assert_state_dicts_equal(model.state_dict(), sd)
     want = jax_side["forward"](_load_init(path, jax_side["init"]))
     assert_detections_close(port_forward(pipe, jax_side["inputs"]), want, TINY_HW[1])
