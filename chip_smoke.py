@@ -10,9 +10,10 @@ Phases, each fatal on failure:
              each kernel's registers and spills;
 2. main    - `build_pipeline(3, 3, (480, 854), bf16)` with seeded random
              weights, `infer_sequence` over a 20-frame clip (first, carry and
-             ragged-tail superchunks), launch counts read around that run,
-             frames/s, peak device memory; one superchunk's real proposals
-             and detection boxes are kept for phases 4 and 6;
+             ragged-tail superchunks), launch counts read around that run
+             (NMS twice per superchunk), frames/s, peak device memory; one
+             superchunk's real proposals and detection boxes, and the
+             candidates of its two NMS calls, are kept for phases 4 and 6;
 3. train   - `Trainer` on the same full-width model (default
              DetectionConfig: 2000 proposals, 512 box and 128 mask rois per
              frame), 8 steps on one seeded window of moving blobs from
@@ -22,7 +23,7 @@ Phases, each fatal on failure:
              ones and FrozenBatchNorm buffers bit-identical, SlowFast running
              statistics moved, ms/step and peak device memory, then
              `infer_sequence` on the trained model; the first step's sampled
-             rois are kept for phases 4 and 6;
+             rois and RPN NMS candidates are kept for phases 4 and 6;
 4. kernels - hold each kernel against its plain PyTorch version at the main
              path's shapes (DAVIS 480x854 -> 768x1344 canvas, superchunk 8:
              [8, 1000] proposals for the 7x7 pool, [8, 10] detections for the
@@ -31,7 +32,12 @@ Phases, each fatal on failure:
              rois, and at 40 channels on the synthetic rois; the backward
              kernel likewise at the train path's shapes ([2, 512] and
              [2, 128] rois), per pixel against the plain backward, and
-             bitwise equal over two calls on the train path's rois;
+             bitwise equal over two calls on the train path's rois; the NMS
+             kernel index-exact against the plain fixpoint on phases 2 and
+             3's own candidates, at the main path's shapes on quantized
+             boxes and scores (ties), at block edges and on edge cases,
+             bitwise equal over two calls, and its path run under the sync
+             debug mode "error" (no host synchronize);
 5. reference - a small f32 input through the same entry point on the card
              and on the CPU (the plain versions), compared; and tiny f32
              train steps on both, same weights and draws: the default
@@ -39,7 +45,9 @@ Phases, each fatal on failure:
              Mask R-CNN (no SlowFast, trainable_backbone_layers 3);
 6. timings - each kernel on both roi sets, with and without the level
              assignment, against its bound and its plain version (the
-             forward also against its per-roi footprint);
+             forward also against its per-roi footprint); the NMS kernel at
+             its four shapes, alone and with the sort around it, against
+             its bound and the plain fixpoint;
 7. drivers - the three drivers at full width (480x854, bf16, default
              DetectionConfig, seeded weights) on synthetic DAVIS trees
              written at run time (2017 train: 2 sequences x 8 frames, 2
@@ -98,9 +106,9 @@ Phases, each fatal on failure:
              `build_pipeline(s2d_stem=True)` inference (launch counts), both
              stems' `backbone_feats` at [SC + 2, 768, 1344] (CUDA events,
              median of 10 in turns), phase 8's 7x7 checkpoint through
-             `load_init` into an s2d model; the blocked NMS against the
-             fixpoint at N = 8192 (index-exact, both times); and
-             `torch_bench.py --transport yuv420 --runs 2`.
+             `load_init` into an s2d model; the NMS kernel and the blocked
+             sweep against the fixpoint at N = 8192 (index-exact, times,
+             peak memory); and `torch_bench.py --transport yuv420 --runs 2`.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -128,6 +136,9 @@ SC = 8
 TRAIN_STEPS = 8
 DRIVER_HW = (480, 854)  # DAVIS 480p
 GRAD_SHARE = 1e-3  # tests/test_torch_train.py's gradient tolerance
+# Kernel launch keys (`cuda_build.launches`): K1 and K5 at both pools, K3.
+LAUNCH_KEYS = (7, 14, ("backward", 7), ("backward", 14), "nms")
+FORWARD_KEYS = (7, 14, "nms")  # what inference launches
 
 
 def log(msg: str) -> None:
@@ -314,12 +325,37 @@ def keeping_rois(module):
         module.multiscale_roi_align = pool
 
 
-def main_path_rois(pipeline_mod, pipe, clip) -> dict:
+@contextlib.contextmanager
+def keeping_nms_inputs():
+    """Within the block, the first candidates of each NMS call site are kept
+    in the dict it yields, as (boxes, scores, valid, iou_threshold): "rpn"
+    (`filter_proposals`' `nms_mask`) and "class_keyed"
+    (`postprocess_detections`' `batched_nms_mask`, boxes offset by label)."""
+    from slowfast_vos_tpu_torch.models import rpn
+    from slowfast_vos_tpu_torch.ops import nms
+
+    kept, nms_mask = {}, nms.nms_mask
+
+    def keeper(site):
+        def keep(boxes, scores, valid, **kw):
+            kept.setdefault(site, (*(x.detach().clone() for x in (boxes, scores, valid)), kw["iou_threshold"]))
+            return nms_mask(boxes, scores, valid, **kw)
+        return keep
+
+    rpn.nms_mask, nms.nms_mask = keeper("rpn"), keeper("class_keyed")
+    try:
+        yield kept
+    finally:
+        rpn.nms_mask = nms.nms_mask = nms_mask
+
+
+def main_path_rois(pipeline_mod, pipe, clip) -> tuple[dict, dict]:
     """The rois of the first superchunk that `infer_sequence` pools: its
-    proposals (7x7 pool) and its detection boxes (14x14 pool)."""
-    with keeping_rois(pipeline_mod) as kept:
+    proposals (7x7 pool) and its detection boxes (14x14 pool); and the
+    candidates of its two NMS calls (`keeping_nms_inputs`)."""
+    with keeping_rois(pipeline_mod) as kept, keeping_nms_inputs() as nms_inputs:
         pipe.infer_sequence(clip[:SC])
-    return kept
+    return kept, nms_inputs
 
 
 def check_detections(dets: list, frames: int, d: int) -> None:
@@ -333,7 +369,7 @@ def check_detections(dets: list, frames: int, d: int) -> None:
         check(((det["boxes"] >= 0) & (det["boxes"] <= [854 + 1e-3, 480 + 1e-3] * 2)).all(), "boxes off the frame")
 
 
-def phase_main(ra, pipeline_mod) -> tuple[dict, dict]:
+def phase_main(ra, pipeline_mod) -> tuple[dict, dict, dict]:
     pipe, model = pipeline_mod.build_pipeline(
         slow=3, fast=3, original_hw=(480, 854), dtype=torch.bfloat16, device="cuda", superchunk=SC
     )
@@ -347,10 +383,12 @@ def phase_main(ra, pipeline_mod) -> tuple[dict, dict]:
     dets = pipe.infer_sequence(clip)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = {k: ra.launches[k] for k in (7, 14)}
+    counts = {k: ra.launches[k] for k in FORWARD_KEYS}
+    chunks = -(-20 // SC)
     log(f"main: infer_sequence 20 frames 480x854 3-3 bf16 superchunk {SC}: first run {first_s:.3f} s, "
-        f"kernel launches pool7 {counts[7]}, pool14 {counts[14]}")
+        f"kernel launches pool7 {counts[7]}, pool14 {counts[14]}, nms {counts['nms']}")
     check(counts[7] > 0 and counts[14] > 0, f"a RoIAlign pool bypassed the kernel: {counts}")
+    check(counts["nms"] == 2 * chunks, f"NMS: 2 launches per superchunk expected over {chunks}: {counts}")
 
     check_detections(dets, 20, pipe.cfg.detections_per_img)
     n_valid = sum(int(det["valid"].sum()) for det in dets)
@@ -367,9 +405,10 @@ def phase_main(ra, pipeline_mod) -> tuple[dict, dict]:
     fps = 20 / statistics.median(runs)
     log(f"main: warm runs {', '.join(f'{r:.3f}' for r in runs)} s -> {fps:.2f} frames/s (median); "
         f"peak device memory {peak / 2**30:.2f} GiB")
-    rois = main_path_rois(pipeline_mod, pipe, clip)
-    log(f"main: kept one superchunk's rois: proposals {tuple(rois[7].shape)}, detections {tuple(rois[14].shape)}")
-    return counts, rois
+    rois, nms_inputs = main_path_rois(pipeline_mod, pipe, clip)
+    log(f"main: kept one superchunk's rois: proposals {tuple(rois[7].shape)}, detections {tuple(rois[14].shape)}; "
+        f"NMS candidates: rpn {tuple(nms_inputs['rpn'][0].shape)}, class-keyed {tuple(nms_inputs['class_keyed'][0].shape)}")
+    return counts, rois, nms_inputs
 
 
 def phase_reference(pipeline_mod, transport: str = "rgb") -> None:
@@ -430,16 +469,16 @@ def train_path_rois(pipeline_mod, train_mod, data) -> dict:
     return kept
 
 
-def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict]:
+def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict, dict]:
     """8 full-width train steps; returns (launch counts of those steps, the
-    first step's sampled rois by output size)."""
+    first step's sampled rois by output size, its RPN NMS candidates)."""
     pipe, model, trainer, batch, clip = full_width_trainer(pipeline_mod, train_mod, data)
     log(f"train: window of {batch['images'].shape[0]} frames 480x854, {int(batch['gt_valid'].sum())} gt boxes, "
         f"feat_valid {batch['feat_valid'].tolist()}")
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    keys = (7, 14, ("backward", 7), ("backward", 14))
+    keys = LAUNCH_KEYS
     per_step, times = [], []
-    with keeping_rois(train_mod.train_step) as kept:
+    with keeping_rois(train_mod.train_step) as kept, keeping_nms_inputs() as nms_inputs:
         torch.cuda.reset_peak_memory_stats()
         ra.launches.clear()
         for i in range(TRAIN_STEPS):
@@ -455,8 +494,7 @@ def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict]:
             log(f"train: step {i} {times[-1]:.1f} ms " + " ".join(f"{k} {v:.4f}" for k, v in values.items()))
         counts = {k: ra.launches[k] for k in keys}
     peak = torch.cuda.max_memory_allocated()
-    log(f"train: launches over {TRAIN_STEPS} steps: pool7 {counts[7]}, pool14 {counts[14]}, "
-        f"backward pool7 {counts['backward', 7]}, backward pool14 {counts['backward', 14]}")
+    log(f"train: launches over {TRAIN_STEPS} steps: {launch_text(counts)}")
     for i, c in enumerate(per_step):
         check(all(v >= 1 for v in c.values()), f"step {i} bypassed a kernel: {c}")
     step_ms = statistics.median(times[1:])
@@ -479,8 +517,9 @@ def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict]:
           "infer_sequence after training gave non-finite detections")
     log(f"train: infer_sequence on the trained model, {len(dets)} frames, "
         f"{sum(int(d['valid'].sum()) for d in dets)} valid detections")
-    log(f"train: kept the first step's rois: pool7 {tuple(kept[7].shape)}, pool14 {tuple(kept[14].shape)}")
-    return {"counts": counts, "step_ms": step_ms, "step_times_ms": times, "peak_gib": peak / 2**30}, kept
+    log(f"train: kept the first step's rois: pool7 {tuple(kept[7].shape)}, pool14 {tuple(kept[14].shape)}; "
+        f"RPN NMS candidates {tuple(nms_inputs['rpn'][0].shape)}")
+    return {"counts": counts, "step_ms": step_ms, "step_times_ms": times, "peak_gib": peak / 2**30}, kept, nms_inputs
 
 
 def phase_backward_kernels(ra, train_rois: dict) -> dict:
@@ -516,6 +555,96 @@ def phase_backward_kernels(ra, train_rois: dict) -> dict:
                     log(f"kernel backward pool{out_size} train-path {name}: two calls bitwise equal {same}")
                     check(same, f"backward pool{out_size} {name}: two calls on the same inputs differ")
     return errs
+
+
+# K3 (`ops/nms.py::nms_cuda`). An IoU test is 14 f32 operations (4 min/max,
+# 2 differences, 2 clamps, the product, the union's sum and difference, its
+# test, the division, the threshold test: `csrc/nms.cu`'s head note).
+NMS_OPS_PER_PAIR = 14
+# Its shapes on the main path, synthetic: (name, leading dims, N, threshold,
+# class-keyed through `batched_nms_mask`).
+NMS_SHAPES = (
+    ("rpn inference", (SC, 5), 1000, 0.7, False),  # filter_proposals, superchunk 8
+    ("rpn train", (2, 5), 2000, 0.7, False),  # filter_proposals in a train step
+    ("class-keyed", (SC,), 1000, 0.5, True),  # postprocess_detections, 2 classes
+    ("large head", (1,), 8192, 0.5, False),  # phase 10's case: a head of 9+ classes
+)
+
+
+def nms_case(rng, lead, n, thr, keyed, canvas=CANVAS, quantum=8.0, sizes=(8, 300)):
+    """NMS candidates on the card: quantized boxes on the canvas [*lead, n,
+    4], scores in steps of 1/16 (duplicate boxes, equal scores, IoUs exactly
+    at a threshold), 10% of the flags invalid. `keyed`: labels 1 or 2 and
+    the boxes offset as `batched_nms_mask` offsets them (captured from its
+    call). Returns (boxes, scores, valid, thr), `nms_mask`'s inputs."""
+    from slowfast_vos_tpu_torch.ops import nms
+
+    xy = rng.uniform(0, [canvas[1], canvas[0]], (*lead, n, 2))
+    boxes = np.round(np.concatenate([xy, xy + rng.uniform(*sizes, (*lead, n, 2))], -1) / quantum) * quantum
+    args = [torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy((np.round(rng.uniform(0, 1, (*lead, n)) * 16) / 16).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.uniform(size=(*lead, n)) > 0.1).cuda()]
+    if not keyed:
+        return (*args, thr)
+    labels = torch.from_numpy(rng.integers(1, 3, (*lead, n)).astype(np.int32)).cuda()
+    with keeping_nms_inputs() as kept:
+        nms.batched_nms_mask(args[0], args[1], labels, args[2], iou_threshold=thr)
+    return kept["class_keyed"]
+
+
+def nms_edge_cases(rng):
+    """[4, 130] problems in one call: all invalid; half invalid; zero-area
+    and zero-width boxes (union 0 or no intersection); identical boxes."""
+    boxes, scores, valid, _ = nms_case(rng, (4,), 130, 0.5, False, canvas=(200, 200), quantum=4.0, sizes=(4, 60))
+    valid[0] = False
+    valid[1, ::2] = False
+    boxes[2, ::2, 2:] = boxes[2, ::2, :2]
+    boxes[2, 1::2, 2] = boxes[2, 1::2, 0]
+    boxes[3] = torch.tensor([10.0, 10.0, 50.0, 50.0])
+    return boxes, scores, valid, 0.5
+
+
+def phase_nms_kernel(nms, main_nms: dict, train_nms: dict) -> float:
+    """K3 (`nms_mask`'s "auto" on the card) against the plain fixpoint on
+    the card, keep and order index for index, one launch per call, and
+    bitwise equal over two calls: on phase 2's own candidates (RPN and
+    class-keyed) and phase 3's (RPN), at the main path's shapes on
+    quantized boxes and scores, at N = 1, 63, 64, 65 and on edge cases.
+    Then the K3 path under the sync debug mode "error", which raises on a
+    synchronizing call. Returns the largest |keep - fixpoint keep| (0)."""
+    rng = np.random.default_rng(30)
+    cases = [("main-path rpn", main_nms["rpn"]), ("main-path class-keyed", main_nms["class_keyed"]),
+             ("train-path rpn", train_nms["rpn"])]
+    cases += [(f"synthetic {name}", nms_case(rng, lead, n, thr, keyed)) for name, lead, n, thr, keyed in NMS_SHAPES]
+    cases += [(f"synthetic N={n}", nms_case(rng, (3,), n, 0.5, False)) for n in (1, 63, 64, 65)]
+    cases.append(("edge cases", nms_edge_cases(rng)))
+    err = 0
+    for tag, (boxes, scores, valid, thr) in cases:
+        before = nms.launches["nms"]
+        keep, order = nms.nms_mask(boxes, scores, valid, iou_threshold=thr)
+        launched = nms.launches["nms"] - before
+        again = nms.nms_mask(boxes, scores, valid, iou_threshold=thr)
+        want = nms.nms_mask(boxes, scores, valid, iou_threshold=thr, algorithm="fixpoint")
+        torch.cuda.synchronize()
+        err = max(err, int((keep.int() - want[0].int()).abs().max()))
+        exact = torch.equal(keep, want[0]) and torch.equal(order, want[1])
+        repeat = torch.equal(keep, again[0]) and torch.equal(order, again[1])
+        log(f"kernel nms {tag} {list(valid.shape)} thr {thr}: {int(keep.sum())} of {int(valid.sum())} valid kept, "
+            f"index-exact with the fixpoint {exact}, two calls bitwise equal {repeat}, {launched} launch")
+        check(exact and repeat and launched == 1, f"nms {tag}: the kernel disagrees with the fixpoint or itself")
+    boxes, scores, valid, thr = main_nms["rpn"]
+    kboxes, kscores, kvalid, kthr = main_nms["class_keyed"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nms.nms_mask(boxes, scores, valid, iou_threshold=thr)
+        nms.nms_mask(kboxes, kscores, kvalid, iou_threshold=kthr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("kernel nms: the main path's two calls (sort, gather, kernel, scatter) ran under sync debug mode "
+        "\"error\": no host synchronize")
+    return float(err)
 
 
 @contextlib.contextmanager
@@ -625,18 +754,21 @@ def timed_steps(train_mod):
         train_mod.Trainer.step = step
 
 
-LAUNCH_KEYS = (7, 14, ("backward", 7), ("backward", 14))  # K1 and K5 at both pools
+def launch_text(c: dict) -> str:
+    """A launch-count dict (keys as in LAUNCH_KEYS or their str()) as text."""
+    get = lambda k: c[k] if k in c else c[str(k)]  # noqa: E731
+    return (f"pool7 {get(7)}, pool14 {get(14)}, backward pool7 {get(('backward', 7))}, backward pool14 "
+            f"{get(('backward', 14))}, nms {get('nms')}")
 
 
 @contextlib.contextmanager
 def launches_of(ra, counts: dict, name: str, required=LAUNCH_KEYS, tag: str = "drivers"):
-    """Launch counts of K1 and K5 at both pools over the block, kept under
-    `name`; those of `required` checked above zero."""
+    """Launch counts of K1 and K5 at both pools and of K3 over the block,
+    kept under `name`; those of `required` checked above zero."""
     ra.launches.clear()
     yield
     counts[name] = {k: ra.launches[k] for k in LAUNCH_KEYS}
-    log(f"{tag}: {name}: launches pool7 {counts[name][7]}, pool14 {counts[name][14]}, backward pool7 "
-        f"{counts[name]['backward', 7]}, backward pool14 {counts[name]['backward', 14]}")
+    log(f"{tag}: {name}: launches {launch_text(counts[name])}")
     check(all(counts[name][k] > 0 for k in required), f"{name} bypassed a kernel: {counts[name]}")
 
 
@@ -805,7 +937,7 @@ def phase_cli(ra, data, workdir: Path) -> dict:
     data.make_synthetic_davis(eval_root, num_sequences=1, frames=16, hw=DRIVER_HW, num_objects=1, year="2016",
                               subset="val", seed=7)
     counts, walls = {}, {}
-    forward = (7, 14)
+    forward = FORWARD_KEYS
 
     def run(name, cli, argv, required=LAUNCH_KEYS):
         with launches_of(ra, counts, name, required, tag="cli"):
@@ -820,9 +952,10 @@ def phase_cli(ra, data, workdir: Path) -> dict:
     ckpt = str(Path(pre) / "maskrcnn_model.pt")
     out = run("pretrain", torch_pretrain_maskrcnn, ["--davis-root", train_root, "--output", pre, "--epochs", "1"])
     check(len(out["history"]) == 1 and np.isfinite(out["history"][0]["loss"]), f"pretrain history {out['history']}")
-    # The proposal dump runs the backbone and the RPN only: no RoIAlign.
+    # The proposal dump runs the backbone and the RPN only: NMS, no RoIAlign.
     out = run("pretrain --predict-boxes", torch_pretrain_maskrcnn,
-              ["--davis-root", train_root, "--output", pre, "--predict-boxes", "--init-checkpoint", ckpt], required=())
+              ["--davis-root", train_root, "--output", pre, "--predict-boxes", "--init-checkpoint", ckpt],
+              required=("nms",))
     props = np.load(out["proposals"])["synth00/proposals"]
     check(props.shape == (8, 1000, 4) and np.isfinite(props).all(), f"proposal dump {props.shape}")
 
@@ -1009,6 +1142,88 @@ def phase_timings(ra, errs: dict, counts: dict, main_rois: dict) -> list:
             "main_path_rois": per_set["main_path"],
         })
     return records
+
+
+def nms_bound(svalid: torch.Tensor, alive: torch.Tensor) -> tuple[float, str, int]:
+    """Least time for K3 on this run's data on an H100: operations, the IoU
+    tests greedy NMS cannot skip (each kept box against every kept box
+    before it, one test for each suppressed valid box) at NMS_OPS_PER_PAIR
+    f32 operations over the f32 rate, against bytes (each box and flag read
+    once, each flag written once) over the memory rate. Returns (ms, what
+    bounds it, the pairs counted)."""
+    kept = alive.reshape(-1, alive.shape[-1]).sum(-1).double()
+    suppressed = (svalid & ~alive).reshape(kept.shape[0], -1).sum(-1).double()
+    pairs = int((kept * (kept - 1) / 2 + suppressed).sum())
+    t_ops = pairs * NMS_OPS_PER_PAIR / F32_FLOP_PER_S * 1e3
+    t_bytes = svalid.numel() * (16 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), pairs
+
+
+def kernel_ms_by_name(fn, names: tuple, runs: int = 5) -> dict:
+    """Device ms per call of each kernel of `fn` whose name holds one of
+    `names`, summed by that name: torch.profiler over `runs` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        name = next((n for n in names if n in e.name), None)
+        if e.device_type == DeviceType.CUDA and name:
+            out[name] += e.time_range.elapsed_us() / 1e3 / runs
+    return out
+
+
+def nms_timings(nms, err: float, counts: dict, main_nms: dict, train_nms: dict) -> dict:
+    """K3 on phase 2 and 3's own candidates and at NMS_SHAPES: device time
+    of `nms_mask` (sort, gather, kernel, scatter) and of the kernel alone
+    on sorted inputs (CUDA events, calls queued behind a spin), the
+    kernel's two launches apart (torch.profiler), the host clock per call,
+    the plain fixpoint's host clock, and the bound. The record's own
+    numbers are phase 2's RPN call's."""
+    rng = np.random.default_rng(31)
+    cases = [("main_path rpn", main_nms["rpn"]), ("main_path class_keyed", main_nms["class_keyed"]),
+             ("train_path rpn", train_nms["rpn"])]
+    cases += [(f"synthetic {name}", nms_case(rng, lead, n, thr, keyed)) for name, lead, n, thr, keyed in NMS_SHAPES]
+    per_case = {}
+    for tag, (boxes, scores, valid, thr) in cases:
+        _, sboxes, svalid = nms.score_order(boxes, scores, valid)
+        full = lambda: nms.nms_mask(boxes, scores, valid, iou_threshold=thr)  # noqa: E731
+        alone = lambda: nms.nms_cuda(sboxes, svalid, thr)  # noqa: E731
+        ms, only_ms, wrapper_ms = device_ms(full), device_ms(alone), call_ms(full)
+        split = kernel_ms_by_name(alone, ("nms_mask_kernel", "nms_reduce_kernel"))
+        plain_ms = call_ms(lambda: nms.nms_mask(boxes, scores, valid, iou_threshold=thr, algorithm="fixpoint"), runs=5)
+        bound_ms, bound_by, pairs = nms_bound(svalid, nms.nms_cuda(sboxes, svalid, thr))
+        n = valid.shape[-1]
+        per_case[tag] = {"shape": list(valid.shape), "thr": thr, "ms": ms, "kernel_only_ms": only_ms,
+                         "wrapper_call_ms": wrapper_ms, "mask_kernel_ms": split["nms_mask_kernel"],
+                         "reduce_kernel_ms": split["nms_reduce_kernel"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "pairs": pairs, "all_pairs": valid.numel() // max(n, 1) * n * (n - 1) // 2,
+                         "scratch_bytes": nms.scratch_bytes(valid.numel() // max(n, 1), n)}
+        log(f"time: nms {tag} {list(valid.shape)} thr {thr}: {ms:.4f} ms device time with the sort and scatter, "
+            f"{only_ms:.4f} ms kernel alone (mask {split['nms_mask_kernel']:.4f} + reduce "
+            f"{split['nms_reduce_kernel']:.4f} ms, profiler; {wrapper_ms:.4f} ms per call on the host clock); plain fixpoint "
+            f"{plain_ms:.4f} ms (host clock); bound {bound_ms:.6f} ms ({bound_by}, {pairs} IoU tests of "
+            f"{per_case[tag]['all_pairs']} pairs); scratch {per_case[tag]['scratch_bytes'] / 1e6:.2f} MB")
+    main = per_case["main_path rpn"]
+    return {
+        "name": "nms",
+        "route": "cuda",
+        "source": "slowfast_vos_tpu_torch/csrc/nms.cu",
+        "replaces": "slowfast_vos_tpu/ops/nms.py:27",
+        "replaces_note": "_nms_fixpoint and the blocked sweep of nms_mask (:96-136), computed by XLA; there is no "
+                         "Pallas kernel for NMS",
+        "launches": counts["nms"],
+        "max_abs_err": err,
+        **{k: main[k] for k in ("ms", "kernel_only_ms", "wrapper_call_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "cases": per_case,
+    }
 
 
 # Phase 9: the parallel layer. Two ranks on the one card run as worker
@@ -1286,10 +1501,9 @@ def phase_parallel(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
         for name, c in r["counts"].items():
             key = f"{name} rank{r['rank']}"
             out["counts"][key] = c
-            required = ("7", "14") if name == "davis_evaluation" else tuple(str(k) for k in LAUNCH_KEYS)
-            check(all(c[k] > 0 for k in required), f"{key} bypassed a kernel: {c}")
-            log(f"parallel: {key}: launches pool7 {c['7']}, pool14 {c['14']}, backward pool7 "
-                f"{c[str(('backward', 7))]}, backward pool14 {c[str(('backward', 14))]}")
+            required = FORWARD_KEYS if name == "davis_evaluation" else LAUNCH_KEYS
+            check(all(c[str(k)] > 0 for k in required), f"{key} bypassed a kernel: {c}")
+            log(f"parallel: {key}: launches {launch_text(c)}")
     out["dp_step_ms"].update({f"rank{r['rank']}": r["dp_step_ms"] for r in results})
     out["dp_loss_rel_err"] = max(max(r["dp_loss_rel_err"]) for r in results)
     out["walls_s"].update({f"{k} rank{r['rank']}": v for r in results for k, v in r["walls_s"].items()})
@@ -1310,7 +1524,7 @@ def phase_parallel(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
     pipeline_mod.init_weights(model, seed=0)
     rng = np.random.default_rng(11)
     clips = [data.draw_sequence(rng, t, *hw, 2)[0] for t in (20, 11, 6)]
-    with launches_of(ra, out["counts"], "device_parallel_inference", required=(7, 14), tag="parallel"):
+    with launches_of(ra, out["counts"], "device_parallel_inference", required=FORWARD_KEYS, tag="parallel"):
         t0 = time.perf_counter()
         dp = DeviceParallelInference(pipe, cuda2)
         got = dp.infer_group(clips[:2]) + dp.infer_group(clips[2:])
@@ -1400,13 +1614,14 @@ def phase_transport_stem(ra, pipeline_mod, cli_dir: Path) -> dict:
     d = pipe.cfg.detections_per_img
 
     torch.cuda.reset_peak_memory_stats()
-    with launches_of(ra, counts, "infer_sequence yuv420", (7, 14), tag="transport"):
+    with launches_of(ra, counts, "infer_sequence yuv420", FORWARD_KEYS, tag="transport"):
         dets = pipe.infer_sequence(clip, transport="yuv420")
         torch.cuda.synchronize()
     out["peak_gib_yuv420"] = torch.cuda.max_memory_allocated() / 2**30
     check_detections(dets, 20, d)
-    check(counts["infer_sequence yuv420"][7] == chunks and counts["infer_sequence yuv420"][14] == chunks,
-          f"yuv420 inference: {chunks} launches of each pool expected")
+    c = counts["infer_sequence yuv420"]
+    check(c[7] == chunks and c[14] == chunks and c["nms"] == 2 * chunks,
+          f"yuv420 inference: {chunks} launches of each pool and {2 * chunks} of NMS expected")
     out["bytes_per_chunk"] = {
         transport: {"first": upload_bytes(pipe.chunk_inputs(clip, 0, False, transport)[0]),
                     "carry": upload_bytes(pipe.chunk_inputs(clip, SC, True, transport)[0])}
@@ -1453,12 +1668,13 @@ def phase_transport_stem(ra, pipeline_mod, cli_dir: Path) -> dict:
     s2d_pipe, s2d_model = pipeline_mod.build_pipeline(
         3, 3, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=SC, s2d_stem=True)
     s2d_model.load_state_dict(migrate_state_dict(model.state_dict(), s2d_model.state_dict()), strict=True)
-    with launches_of(ra, counts, "infer_sequence s2d stem", (7, 14), tag="stem"):
+    with launches_of(ra, counts, "infer_sequence s2d stem", FORWARD_KEYS, tag="stem"):
         s2d_dets = s2d_pipe.infer_sequence(clip)
         torch.cuda.synchronize()
     check_detections(s2d_dets, 20, d)
-    check(counts["infer_sequence s2d stem"][7] == chunks and counts["infer_sequence s2d stem"][14] == chunks,
-          f"s2d inference: {chunks} launches of each pool expected")
+    c = counts["infer_sequence s2d stem"]
+    check(c[7] == chunks and c[14] == chunks and c["nms"] == 2 * chunks,
+          f"s2d inference: {chunks} launches of each pool and {2 * chunks} of NMS expected")
     rgb_dets = pipe.infer_sequence(clip)
     same = np.mean([np.array_equal(a["valid"], b["valid"]) for a, b in zip(s2d_dets, rgb_dets)])
     log(f"stem: s2d pipeline infer_sequence 20 frames at full width: valid flags equal to the 7x7 stem's in "
@@ -1490,7 +1706,7 @@ def phase_transport_stem(ra, pipeline_mod, cli_dir: Path) -> dict:
             torch.from_numpy((np.round(rng.uniform(0, 1, NMS_BLOCKED_N) * 64) / 64).astype(np.float32)).cuda(),
             torch.from_numpy(rng.uniform(size=NMS_BLOCKED_N) > 0.05).cuda())
     results, nms_ms, nms_gib = {}, {}, {}
-    for algorithm in ("fixpoint", "blocked"):
+    for algorithm in ("auto", "fixpoint", "blocked"):  # "auto" on the card: K3
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1499,14 +1715,14 @@ def phase_transport_stem(ra, pipeline_mod, cli_dir: Path) -> dict:
         nms_gib[algorithm] = (torch.cuda.max_memory_allocated() - base) / 2**30
         nms_ms[algorithm] = call_ms(lambda: nms.nms_mask(*args, iou_threshold=0.5, algorithm=algorithm), runs=5, warmup=1)
     kept = int(results["blocked"][0].sum())
-    log(f"nms: N = {NMS_BLOCKED_N} on the card, {kept} kept: fixpoint {nms_ms['fixpoint']:.3f} ms, "
-        f"{nms_gib['fixpoint']:.3f} GiB; blocked (B 128) {nms_ms['blocked']:.3f} ms, {nms_gib['blocked']:.3f} GiB "
-        f"(host clock, median of 5; temporaries' peak)")
-    check(all(torch.equal(a, b) for a, b in zip(results["blocked"], results["fixpoint"])) and 0 < kept < NMS_BLOCKED_N,
-          "blocked NMS differs from the fixpoint")
+    log(f"nms: N = {NMS_BLOCKED_N} on the card, {kept} kept: kernel {nms_ms['auto']:.3f} ms, {nms_gib['auto']:.3f} "
+        f"GiB; fixpoint {nms_ms['fixpoint']:.3f} ms, {nms_gib['fixpoint']:.3f} GiB; blocked (B 128) "
+        f"{nms_ms['blocked']:.3f} ms, {nms_gib['blocked']:.3f} GiB (host clock, median of 5; temporaries' peak)")
+    check(all(torch.equal(a, b) for alg in ("auto", "blocked") for a, b in zip(results[alg], results["fixpoint"]))
+          and 0 < kept < NMS_BLOCKED_N, "the kernel or the blocked NMS differs from the fixpoint")
     out["nms"] = {"n": NMS_BLOCKED_N, "kept": kept, "ms": nms_ms, "peak_gib": nms_gib}
 
-    with launches_of(ra, counts, "bench --transport yuv420 --runs 2", (7, 14), tag="transport"):
+    with launches_of(ra, counts, "bench --transport yuv420 --runs 2", FORWARD_KEYS, tag="transport"):
         (record,) = torch_bench.main(["--transport", "yuv420", "--runs", "2"])
     check(record["transport"] == "yuv420" and record["value"] > 0 and record["device_fps"] > 0,
           f"bench yuv420 record {record}")
@@ -1524,7 +1740,7 @@ def main() -> int:
     from slowfast_vos_tpu_torch import train as train_mod
     from slowfast_vos_tpu_torch.models import config as cfg_mod
     from slowfast_vos_tpu_torch.models import pipeline as pipeline_mod
-    from slowfast_vos_tpu_torch.ops import cuda_build
+    from slowfast_vos_tpu_torch.ops import cuda_build, nms
     from slowfast_vos_tpu_torch.ops import roi_align as ra
 
     # The port under test is the one beside this script, not an installed copy.
@@ -1537,16 +1753,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     phase_build(cuda_build)
-    counts, main_rois = phase_main(ra, pipeline_mod)
-    train, train_rois = phase_train(ra, pipeline_mod, train_mod, data)
+    counts, main_rois, main_nms = phase_main(ra, pipeline_mod)
+    train, train_rois, train_nms = phase_train(ra, pipeline_mod, train_mod, data)
     errs = phase_kernels(ra, main_rois)
     bwd_errs = phase_backward_kernels(ra, train_rois)
+    nms_err = phase_nms_kernel(nms, main_nms, train_nms)
     phase_reference(pipeline_mod)
     phase_train_reference(pipeline_mod, train_mod, data, cfg_mod)
     records = phase_timings(ra, errs, counts, main_rois)
     for r, out_size in zip(records, (7, 14)):
         r["train_launches"] = train["counts"][out_size]
     records += backward_timings(ra, bwd_errs, train["counts"], train_rois)
+    records.append(nms_timings(nms, nms_err, counts, main_nms, train_nms))
+    records[-1]["train_launches"] = train["counts"]["nms"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_", dir=cuda_build.BUILD_DIR) as workdir:
         drivers = phase_drivers(ra, pipeline_mod, train_mod, data, Path(workdir))
     t0 = time.perf_counter()
@@ -1564,7 +1783,7 @@ def main() -> int:
     log(f"transport and stem: phase 10 in {time.perf_counter() - t0:.1f} s")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
-        key = ("backward", size) if "backward" in r["name"] else size
+        key = "nms" if r["name"] == "nms" else ("backward", size) if "backward" in r["name"] else size
         r["drivers_launches"] = {name: c[key] for name, c in drivers["counts"].items()}
         r["cli_launches"] = {name: c[key] for name, c in cli["counts"].items()}
         r["parallel_launches"] = {name: c[key] if key in c else c[str(key)] for name, c in parallel["counts"].items()}

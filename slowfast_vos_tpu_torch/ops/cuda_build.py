@@ -4,9 +4,16 @@ Each source is compiled by `nvcc` into a shared library with a plain C
 interface and loaded with `ctypes` (no PyTorch headers, so a build takes
 seconds). Libraries go into `build/` beside the package, named by a hash of
 the source, and are built at first use: never when a module is imported.
+
+`launches` counts the kernel launches of every wrapper, by key: RoIAlign's
+forward by output size (7, 14), its backward by ("backward", output size),
+NMS by "nms". `chip_smoke.py` reads it to show that a path went through the
+kernels. Member threads (`parallel/mesh.py::on_members`) launch
+concurrently, so each count is taken under a lock.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -14,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -23,6 +31,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+launches: collections.Counter = collections.Counter()
+_launches_lock = threading.Lock()
+
+
+def count_launch(key) -> None:
+    with _launches_lock:
+        launches[key] += 1
 
 
 def nvcc_path() -> str:

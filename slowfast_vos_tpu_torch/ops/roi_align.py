@@ -56,10 +56,8 @@ CUDA the backward takes the levels its forward computed.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
-import threading
 from typing import Sequence
 
 import torch
@@ -69,16 +67,9 @@ from slowfast_vos_tpu_torch.ops import cuda_build
 ROI_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 
 # Kernel launches: the forward's by output size (7, 14), the backward's by
-# ("backward", output size); `chip_smoke.py` reads them to show that the
-# main path went through the kernels. Member threads (`parallel/mesh.py::
-# on_members`) launch concurrently, so each count is taken under a lock.
-launches: collections.Counter = collections.Counter()
-_launches_lock = threading.Lock()
-
-
-def _count_launch(key) -> None:
-    with _launches_lock:
-        launches[key] += 1
+# ("backward", output size), in the counter every kernel wrapper shares.
+launches = cuda_build.launches
+_count_launch = cuda_build.count_launch
 
 
 def fpn_level_assignment(

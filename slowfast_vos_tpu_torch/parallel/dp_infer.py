@@ -18,8 +18,8 @@ on that device.
   its first sequence, whose duplicate outputs are dropped.
 
 Each member runs on its own host thread (`mesh.on_members`), so members on
-distinct GPUs overlap through the host synchronizes of each chunk step (the
-NMS fixpoint's, `ops/nms.py`).
+distinct GPUs overlap wherever a member's thread waits on its device (the
+upload of each chunk's frames, the fetch of the results).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The PyTorch port's checks that need the card: the RoIAlign kernel and
 its backward against their plain versions, the level assignment on the
 card against the CPU's, the YUV 4:2:0 decode on the card against the CPU's,
-and the blocked NMS sweep on the card against the fixpoint.
+the blocked NMS sweep on the card against the fixpoint, and the NMS kernel
+(K3) against the fixpoint, index for index.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -169,3 +170,118 @@ def test_blocked_nms_on_the_card_matches_fixpoint(cuda_device):
     for algorithm in ("blocked", "fixpoint"):
         keep, order = pnms.nms_mask(*on_card, iou_threshold=0.7, algorithm=algorithm)
         assert torch.equal(order.cpu(), want[1]) and torch.equal(keep.cpu(), want[0]), algorithm
+
+
+def nms_case(rng, lead, n, canvas=(768, 1344), quantum=8.0, scale=(8, 300)):
+    """Quantized boxes on the canvas [*lead, n, 4] and scores [*lead, n] in
+    steps of 1/16 (duplicate boxes, equal scores and IoUs exactly at the
+    threshold), 10% of the flags invalid, as CPU tensors."""
+    xy = rng.uniform(0, [canvas[1], canvas[0]], (*lead, n, 2))
+    boxes = np.round(np.concatenate([xy, xy + rng.uniform(*scale, (*lead, n, 2))], -1) / quantum) * quantum
+    scores = np.round(rng.uniform(0, 1, (*lead, n)) * 16) / 16
+    return (torch.from_numpy(boxes.astype(np.float32)), torch.from_numpy(scores.astype(np.float32)),
+            torch.from_numpy(rng.uniform(size=(*lead, n)) > 0.1))
+
+
+def assert_kernel_matches_fixpoint(device, boxes, scores, valid, thr):
+    """K3 (`nms_mask`'s "auto" on the card) against the fixpoint on the card
+    and on the CPU: keep and order index for index, one launch."""
+    before = pnms.launches["nms"]
+    keep, order = pnms.nms_mask(*(x.to(device) for x in (boxes, scores, valid)), iou_threshold=thr)
+    assert pnms.launches["nms"] == before + 1
+    fixpoint = pnms.nms_mask(*(x.to(device) for x in (boxes, scores, valid)), iou_threshold=thr, algorithm="fixpoint")
+    cpu = pnms.nms_mask(boxes, scores, valid, iou_threshold=thr, algorithm="fixpoint")
+    for want in (fixpoint, cpu):
+        assert torch.equal(order.cpu(), want[1].cpu()) and torch.equal(keep.cpu(), want[0].cpu())
+    return keep.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,n,thr", [
+    ((8, 5), 1000, 0.7),  # RPN `filter_proposals`, inference at superchunk 8
+    ((2, 5), 2000, 0.7),  # RPN `filter_proposals`, one train step
+    ((3,), 1, 0.5), ((3,), 63, 0.5), ((3,), 64, 0.5), ((3,), 65, 0.5),  # one block, full and ragged
+    ((1,), 8192, 0.5),  # phase 10's large case
+])
+def test_nms_kernel_matches_fixpoint(cuda_device, lead, n, thr):
+    """K3 at the main path's shapes and at block edges, on quantized boxes
+    and scores (ties, IoUs exactly at the threshold), index-exact."""
+    keep = assert_kernel_matches_fixpoint(cuda_device, *nms_case(np.random.default_rng(n), lead, n), thr)
+    assert n < 64 or 0 < keep.sum() < keep.numel()
+
+
+@pytest.mark.cuda
+def test_nms_kernel_class_keyed_matches_fixpoint(cuda_device):
+    """`postprocess_detections`' class-keyed call through `batched_nms_mask`
+    ([8, 1000]: 1000 proposals x 1 foreground class, plus a second label on
+    half of them, 0.5): the kernel sees the offset boxes, as the fixpoint."""
+    boxes, scores, valid = nms_case(np.random.default_rng(21), (8,), 1000)
+    labels = torch.from_numpy(np.random.default_rng(22).integers(1, 3, (8, 1000)).astype(np.int32))
+    on_card = [x.to(cuda_device) for x in (boxes, scores, labels, valid)]
+    before = pnms.launches["nms"]
+    keep, order = pnms.batched_nms_mask(*on_card, iou_threshold=0.5)
+    assert pnms.launches["nms"] == before + 1
+    want = pnms.batched_nms_mask(boxes, scores, labels, valid, iou_threshold=0.5)
+    assert torch.equal(order.cpu(), want[1]) and torch.equal(keep.cpu(), want[0])
+
+
+@pytest.mark.cuda
+def test_nms_kernel_edge_cases(cuda_device):
+    """Problems side by side in one call: all invalid; half invalid;
+    zero-area boxes (union 0: IoU 0, never suppressed, never suppressing);
+    identical boxes (the first valid one kept); boxes touching at an edge
+    (intersection 0); a box inside another at IoU exactly 0.5."""
+    rng = np.random.default_rng(23)
+    n = 130
+    boxes, scores, valid = nms_case(rng, (6,), n, canvas=(200, 200), quantum=4.0, scale=(4, 60))
+    valid[0] = False
+    valid[1, ::2] = False
+    boxes[2, ::3, 2:] = boxes[2, ::3, :2]  # zero area
+    boxes[2, 1::3, 2] = boxes[2, 1::3, 0]  # zero width
+    boxes[3] = torch.tensor([10.0, 10.0, 50.0, 50.0])  # identical
+    boxes[4, :, :2] = torch.arange(n, dtype=torch.float32)[:, None] * 10  # a chain touching at edges
+    boxes[4, :, 2:] = boxes[4, :, :2] + 10
+    boxes[5, :2] = torch.tensor([[0.0, 0.0, 20.0, 20.0], [0.0, 0.0, 20.0, 10.0]])  # IoU 0.5 exactly
+    scores[5, :2] = torch.tensor([2.0, 1.5])
+    valid[5, :2] = True
+    keep = assert_kernel_matches_fixpoint(cuda_device, boxes, scores, valid, 0.5)
+    assert not keep[0].any() and not keep[1, ::2].any()
+    assert keep[3].sum() == 1 and torch.equal(keep[4], valid[4]) and keep[5, 0] and keep[5, 1]
+
+
+@pytest.mark.cuda
+def test_nms_kernel_batched_equals_per_problem_and_repeats_bitwise(cuda_device, monkeypatch):
+    """One launch over [2, 5, 2000] equals a launch per problem; two calls
+    give the same bits; a scratch budget that forces chunks of problems
+    gives the same answer in one launch pair per chunk."""
+    boxes, scores, valid = (x.to(cuda_device) for x in nms_case(np.random.default_rng(24), (2, 5), 2000))
+    _, sboxes, svalid = pnms.score_order(boxes, scores, valid)
+    alive = pnms.nms_cuda(sboxes, svalid, 0.7)
+    for i in range(2):
+        for j in range(5):
+            assert torch.equal(pnms.nms_cuda(sboxes[i, j].contiguous(), svalid[i, j].contiguous(), 0.7), alive[i, j])
+    assert torch.equal(pnms.nms_cuda(sboxes, svalid, 0.7), alive)
+    assert torch.equal(alive, pnms._nms_fixpoint(sboxes, svalid, 0.7))
+    monkeypatch.setattr(pnms, "SCRATCH_BUDGET", 3 * pnms.scratch_bytes(1, 2000))  # chunks of 3, 3, 3, 1
+    before = pnms.launches["nms"]
+    chunked = pnms.nms_cuda(sboxes, svalid, 0.7)
+    assert pnms.launches["nms"] == before + 4
+    assert torch.equal(chunked, alive)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_path_has_no_host_synchronize(cuda_device):
+    """`nms_mask`'s K3 path (sort, gather, kernel, scatter) under the sync
+    debug mode "error", which raises on any synchronizing call; and no box
+    at all launches nothing."""
+    boxes, scores, valid = (x.to(cuda_device) for x in nms_case(np.random.default_rng(25), (8, 5), 1000))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keep, _ = pnms.nms_mask(boxes, scores, valid, iou_threshold=0.7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert keep.shape == (8, 5, 1000)
+    before = pnms.launches["nms"]
+    keep, order = pnms.nms_mask(boxes[:, :, :0], scores[:, :, :0], valid[:, :, :0], iou_threshold=0.7)
+    assert keep.shape == (8, 5, 0) and pnms.launches["nms"] == before

@@ -170,6 +170,48 @@ def test_nms_auto_takes_the_blocked_sweep_above_the_fixpoint_limit(monkeypatch):
     assert torch.equal(bkeep, keep)
 
 
+def test_nms_kernel_wrapper_rejects_what_the_kernel_does_not_take():
+    """K3's input checks run before any build or launch, so they are
+    testable without the card; so is the chunking of problems, a function
+    of the shapes."""
+    boxes, valid = torch.zeros(2, 5, 64, 4), torch.ones(2, 5, 64, dtype=torch.bool)
+    pnms._check_nms_inputs(boxes, valid)
+    pnms._check_nms_inputs(boxes[:, :, :0], valid[:, :, :0])
+    with pytest.raises(TypeError, match="float32 boxes"):
+        pnms._check_nms_inputs(boxes.double(), valid)
+    with pytest.raises(TypeError, match="float32 boxes"):
+        pnms._check_nms_inputs(boxes.bfloat16(), valid)
+    with pytest.raises(TypeError, match="bool valid"):
+        pnms._check_nms_inputs(boxes, valid.to(torch.uint8))
+    for b, v in ((boxes[..., :3], valid), (boxes, valid[..., :63]), (boxes[0, 0, 0], valid[0, 0, 0]), (boxes, valid[0])):
+        with pytest.raises(ValueError, match=r"\[\.\.\., N, 4\]"):
+            pnms._check_nms_inputs(b, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        pnms._check_nms_inputs(boxes.transpose(0, 1), valid.transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        pnms._check_nms_inputs(boxes, valid.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="share one device"):
+        pnms._check_nms_inputs(boxes, valid.to("meta"))
+    shifted = torch.empty(boxes.numel() + 1)[1:].view(boxes.shape)  # contiguous, 4 bytes into its storage
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pnms._check_nms_inputs(shifted, valid)
+    n = pnms.KERNEL_MAX_N + 1
+    with pytest.raises(ValueError, match=f"at most {pnms.KERNEL_MAX_N}"):
+        pnms._check_nms_inputs(torch.zeros(1, n, 4), torch.ones(1, n, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pnms.nms_cuda(boxes, valid, 0.5)
+    with pytest.raises(ValueError, match="no NMS for device meta"):
+        pnms.nms_mask(boxes.to("meta"), torch.zeros(2, 5, 64, device="meta"), valid.to("meta"))
+    # Scratch of [40, 1000] is 5.12 MB: one launch pair; one problem of
+    # 90,000 boxes needs 1.0 GB, above the budget: one problem a launch.
+    assert pnms.problems_per_launch(40, 1000) == 40
+    assert pnms.problems_per_launch(10, 2000) == 10
+    assert pnms.problems_per_launch(3, 90_000) == 1
+    assert pnms.problems_per_launch(10**6, 64) == pnms.KERNEL_MAX_PROBLEMS
+    assert pnms.problems_per_launch(100, 8192) == pnms.SCRATCH_BUDGET // (8192 * 128 * 8)
+    assert pnms.scratch_bytes(40, 1000) == 5_120_000 and pnms.scratch_bytes(1, 90_000) == 1_013_040_000
+
+
 def test_nms_rejects_an_unknown_algorithm():
     with pytest.raises(ValueError, match="algorithm"):
         pnms.nms_mask(torch.zeros(3, 4), torch.zeros(3), algorithm="greedy")
