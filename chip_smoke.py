@@ -35,7 +35,8 @@ Phases, each fatal on failure:
              bitwise equal over two calls on the train path's rois; the NMS
              kernel index-exact against the plain fixpoint on phases 2 and
              3's own candidates, at the main path's shapes on quantized
-             boxes and scores (ties), at block edges and on edge cases,
+             boxes and scores (ties), at block edges, at the boundary of
+             its shared and global routes and on edge cases,
              bitwise equal over two calls, and its path run under the sync
              debug mode "error" (no host synchronize);
 5. reference - a small f32 input through the same entry point on the card
@@ -46,8 +47,9 @@ Phases, each fatal on failure:
 6. timings - each kernel on both roi sets, with and without the level
              assignment, against its bound and its plain version (the
              forward also against its per-roi footprint); the NMS kernel at
-             its four shapes, alone and with the sort around it, against
-             its bound and the plain fixpoint;
+             its four shapes, alone and with the sort around it, its
+             device launches per call, route and cluster size, against its
+             bound and the plain fixpoint;
 7. drivers - the three drivers at full width (480x854, bf16, default
              DetectionConfig, seeded weights) on synthetic DAVIS trees
              written at run time (2017 train: 2 sequences x 8 frames, 2
@@ -195,22 +197,28 @@ def call_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 20) -> float:
+def device_ms(fn, runs: int = 20, attempts: int = 3) -> float:
     """Device time of one call of `fn`: CUDA events around `runs` calls
     queued back to back behind a spin kernel, so the host's launch overhead
-    is hidden and the device runs the calls without gaps. Fails if the
-    spin ended before the host had queued every call."""
+    is hidden and the device runs the calls without gaps. Where the spin
+    ended before the host had queued every call (a host stall), the
+    measurement is thrown away and taken again behind a spin four times as
+    long; fails if that happens `attempts` times."""
     host_ms = call_ms(fn, runs=3, warmup=1)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(4e6 * host_ms * runs) + 10**7)  # ~2 cycles/ns: twice the queueing time
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    check(not start.query(), "device_ms: the host queued the calls slower than the spin kernel ran")
-    end.synchronize()
-    return start.elapsed_time(end) / runs
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        # ~2 cycles/ns: twice the queueing time, then four times more per retry
+        torch.cuda._sleep((int(4e6 * host_ms * runs) + 10**7) * 4**attempt)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / runs
+    check(False, "device_ms: the host queued the calls slower than the spin kernel ran")
 
 
 def roi_align_bound(ra, feats, rois, out_size) -> tuple[float, str]:
@@ -609,14 +617,18 @@ def phase_nms_kernel(nms, main_nms: dict, train_nms: dict) -> float:
     the card, keep and order index for index, one launch per call, and
     bitwise equal over two calls: on phase 2's own candidates (RPN and
     class-keyed) and phase 3's (RPN), at the main path's shapes on
-    quantized boxes and scores, at N = 1, 63, 64, 65 and on edge cases.
+    quantized boxes and scores, at N = 1, 63, 64, 65, 127, 128, 129, at
+    the route boundary (the last N whose bitmask stays in shared memory and
+    the next) and on edge cases.
     Then the K3 path under the sync debug mode "error", which raises on a
     synchronizing call. Returns the largest |keep - fixpoint keep| (0)."""
     rng = np.random.default_rng(30)
     cases = [("main-path rpn", main_nms["rpn"]), ("main-path class-keyed", main_nms["class_keyed"]),
              ("train-path rpn", train_nms["rpn"])]
     cases += [(f"synthetic {name}", nms_case(rng, lead, n, thr, keyed)) for name, lead, n, thr, keyed in NMS_SHAPES]
-    cases += [(f"synthetic N={n}", nms_case(rng, (3,), n, 0.5, False)) for n in (1, 63, 64, 65)]
+    cases += [(f"synthetic N={n}", nms_case(rng, (3,), n, 0.5, False)) for n in (1, 63, 64, 65, 127, 128, 129)]
+    edge_n = nms.SHARED_ROUTE_MAX_N
+    cases += [(f"route boundary N={n}", nms_case(rng, (2,), n, 0.5, False)) for n in (edge_n, edge_n + 1)]
     cases.append(("edge cases", nms_edge_cases(rng)))
     err = 0
     for tag, (boxes, scores, valid, thr) in cases:
@@ -629,8 +641,10 @@ def phase_nms_kernel(nms, main_nms: dict, train_nms: dict) -> float:
         err = max(err, int((keep.int() - want[0].int()).abs().max()))
         exact = torch.equal(keep, want[0]) and torch.equal(order, want[1])
         repeat = torch.equal(keep, again[0]) and torch.equal(order, again[1])
-        log(f"kernel nms {tag} {list(valid.shape)} thr {thr}: {int(keep.sum())} of {int(valid.sum())} valid kept, "
-            f"index-exact with the fixpoint {exact}, two calls bitwise equal {repeat}, {launched} launch")
+        n = valid.shape[-1]
+        log(f"kernel nms {tag} {list(valid.shape)} thr {thr} ({nms.route(n)} route, cluster of "
+            f"{nms.cluster_size(n)}): {int(keep.sum())} of {int(valid.sum())} valid kept, index-exact with the "
+            f"fixpoint {exact}, two calls bitwise equal {repeat}, {launched} launch")
         check(exact and repeat and launched == 1, f"nms {tag}: the kernel disagrees with the fixpoint or itself")
     boxes, scores, valid, thr = main_nms["rpn"]
     kboxes, kscores, kvalid, kthr = main_nms["class_keyed"]
@@ -642,7 +656,7 @@ def phase_nms_kernel(nms, main_nms: dict, train_nms: dict) -> float:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("kernel nms: the main path's two calls (sort, gather, kernel, scatter) ran under sync debug mode "
+    log("kernel nms: the main path's two calls (effective scores, sort, kernel) ran under sync debug mode "
         "\"error\": no host synchronize")
     return float(err)
 
@@ -1159,57 +1173,76 @@ def nms_bound(svalid: torch.Tensor, alive: torch.Tensor) -> tuple[float, str, in
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), pairs
 
 
-def kernel_ms_by_name(fn, names: tuple, runs: int = 5) -> dict:
+def kernel_ms_by_name(fn, names: tuple, runs: int = 5, attempts: int = 3) -> tuple[dict, float]:
     """Device ms per call of each kernel of `fn` whose name holds one of
-    `names`, summed by that name: torch.profiler over `runs` calls."""
+    `names`, summed by that name, and the device kernels `fn` launches per
+    call, all of them: torch.profiler over `runs` calls. A trace that came
+    back without device events (the profiler lost them) is taken again, up
+    to `attempts` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.events():
-        name = next((n for n in names if n in e.name), None)
-        if e.device_type == DeviceType.CUDA and name:
-            out[name] += e.time_range.elapsed_us() / 1e3 / runs
-    return out
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        out, kernels = dict.fromkeys(names, 0.0), 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
+                continue
+            kernels += 1
+            name = next((n for n in names if n in e.name), None)
+            if name:
+                out[name] += e.time_range.elapsed_us() / 1e3 / runs
+        if kernels and all(out.values()):
+            break
+    return out, kernels / runs
+
+
+NMS_KERNEL = "nms_cluster_kernel"
 
 
 def nms_timings(nms, err: float, counts: dict, main_nms: dict, train_nms: dict) -> dict:
     """K3 on phase 2 and 3's own candidates and at NMS_SHAPES: device time
-    of `nms_mask` (sort, gather, kernel, scatter) and of the kernel alone
-    on sorted inputs (CUDA events, calls queued behind a spin), the
-    kernel's two launches apart (torch.profiler), the host clock per call,
-    the plain fixpoint's host clock, and the bound. The record's own
-    numbers are phase 2's RPN call's."""
+    of `nms_mask` (effective scores, sort, kernel) and of the kernel alone
+    on the sorted order (CUDA events, calls queued behind a spin), the
+    kernel's own time and the device launches per `nms_mask` call
+    (torch.profiler), the host clock per call, the plain fixpoint's host
+    clock, the bound, and each case's route, cluster, shared memory and
+    scratch. The record's own numbers are phase 2's RPN call's."""
     rng = np.random.default_rng(31)
     cases = [("main_path rpn", main_nms["rpn"]), ("main_path class_keyed", main_nms["class_keyed"]),
              ("train_path rpn", train_nms["rpn"])]
     cases += [(f"synthetic {name}", nms_case(rng, lead, n, thr, keyed)) for name, lead, n, thr, keyed in NMS_SHAPES]
     per_case = {}
     for tag, (boxes, scores, valid, thr) in cases:
-        _, sboxes, svalid = nms.score_order(boxes, scores, valid)
+        eff, order = nms.effective_order(scores, valid)
         full = lambda: nms.nms_mask(boxes, scores, valid, iou_threshold=thr)  # noqa: E731
-        alone = lambda: nms.nms_cuda(sboxes, svalid, thr)  # noqa: E731
+        alone = lambda: nms.nms_cuda(boxes, eff, order, thr)  # noqa: E731
         ms, only_ms, wrapper_ms = device_ms(full), device_ms(alone), call_ms(full)
-        split = kernel_ms_by_name(alone, ("nms_mask_kernel", "nms_reduce_kernel"))
+        split, _ = kernel_ms_by_name(alone, (NMS_KERNEL,))
+        _, per_call = kernel_ms_by_name(full, (NMS_KERNEL,))
         plain_ms = call_ms(lambda: nms.nms_mask(boxes, scores, valid, iou_threshold=thr, algorithm="fixpoint"), runs=5)
-        bound_ms, bound_by, pairs = nms_bound(svalid, nms.nms_cuda(sboxes, svalid, thr))
+        _, _, svalid = nms.score_order(boxes, scores, valid)
+        bound_ms, bound_by, pairs = nms_bound(svalid, torch.gather(alone(), -1, order))
         n = valid.shape[-1]
+        problems = valid.numel() // max(n, 1)
+        route, cluster = nms.route(n), nms.cluster_size(n)
         per_case[tag] = {"shape": list(valid.shape), "thr": thr, "ms": ms, "kernel_only_ms": only_ms,
-                         "wrapper_call_ms": wrapper_ms, "mask_kernel_ms": split["nms_mask_kernel"],
-                         "reduce_kernel_ms": split["nms_reduce_kernel"], "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "pairs": pairs, "all_pairs": valid.numel() // max(n, 1) * n * (n - 1) // 2,
-                         "scratch_bytes": nms.scratch_bytes(valid.numel() // max(n, 1), n)}
-        log(f"time: nms {tag} {list(valid.shape)} thr {thr}: {ms:.4f} ms device time with the sort and scatter, "
-            f"{only_ms:.4f} ms kernel alone (mask {split['nms_mask_kernel']:.4f} + reduce "
-            f"{split['nms_reduce_kernel']:.4f} ms, profiler; {wrapper_ms:.4f} ms per call on the host clock); plain fixpoint "
-            f"{plain_ms:.4f} ms (host clock); bound {bound_ms:.6f} ms ({bound_by}, {pairs} IoU tests of "
-            f"{per_case[tag]['all_pairs']} pairs); scratch {per_case[tag]['scratch_bytes'] / 1e6:.2f} MB")
+                         "wrapper_call_ms": wrapper_ms, "kernel_ms": split[NMS_KERNEL],
+                         "device_launches_per_call": per_call, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "pairs": pairs, "all_pairs": problems * n * (n - 1) // 2,
+                         "route": route, "cluster": cluster, "shared_bytes": nms.shared_bytes(n, cluster, route),
+                         "scratch_bytes": nms.scratch_bytes(nms.problems_per_launch(problems, n), n)}
+        log(f"time: nms {tag} {list(valid.shape)} thr {thr} ({route} route, cluster of {cluster}): {ms:.4f} ms "
+            f"device time with the effective scores and sort ({per_call:g} device launches a call), {only_ms:.4f} ms "
+            f"kernel alone ({split[NMS_KERNEL]:.4f} ms by the profiler; {wrapper_ms:.4f} ms per call on the host "
+            f"clock); plain fixpoint {plain_ms:.4f} ms (host clock); bound {bound_ms:.6f} ms ({bound_by}, {pairs} "
+            f"IoU tests of {per_case[tag]['all_pairs']} pairs); shared memory {per_case[tag]['shared_bytes']} B a "
+            f"CTA, scratch {per_case[tag]['scratch_bytes'] / 1e6:.2f} MB")
     main = per_case["main_path rpn"]
     return {
         "name": "nms",

@@ -186,10 +186,11 @@ def nms_case(rng, lead, n, canvas=(768, 1344), quantum=8.0, scale=(8, 300)):
 def assert_kernel_matches_fixpoint(device, boxes, scores, valid, thr):
     """K3 (`nms_mask`'s "auto" on the card) against the fixpoint on the card
     and on the CPU: keep and order index for index, one launch."""
+    on_card = [None if x is None else x.to(device) for x in (boxes, scores, valid)]
     before = pnms.launches["nms"]
-    keep, order = pnms.nms_mask(*(x.to(device) for x in (boxes, scores, valid)), iou_threshold=thr)
+    keep, order = pnms.nms_mask(*on_card, iou_threshold=thr)
     assert pnms.launches["nms"] == before + 1
-    fixpoint = pnms.nms_mask(*(x.to(device) for x in (boxes, scores, valid)), iou_threshold=thr, algorithm="fixpoint")
+    fixpoint = pnms.nms_mask(*on_card, iou_threshold=thr, algorithm="fixpoint")
     cpu = pnms.nms_mask(boxes, scores, valid, iou_threshold=thr, algorithm="fixpoint")
     for want in (fixpoint, cpu):
         assert torch.equal(order.cpu(), want[1].cpu()) and torch.equal(keep.cpu(), want[0].cpu())
@@ -198,14 +199,18 @@ def assert_kernel_matches_fixpoint(device, boxes, scores, valid, thr):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead,n,thr", [
-    ((8, 5), 1000, 0.7),  # RPN `filter_proposals`, inference at superchunk 8
-    ((2, 5), 2000, 0.7),  # RPN `filter_proposals`, one train step
+    ((8, 5), 1000, 0.7),  # RPN `filter_proposals`, inference at superchunk 8 (cluster of 8)
+    ((2, 5), 2000, 0.7),  # RPN `filter_proposals`, one train step (cluster of 16)
     ((3,), 1, 0.5), ((3,), 63, 0.5), ((3,), 64, 0.5), ((3,), 65, 0.5),  # one block, full and ragged
-    ((1,), 8192, 0.5),  # phase 10's large case
+    ((3,), 127, 0.5), ((3,), 128, 0.5), ((3,), 129, 0.5),  # two blocks; three, the first cluster of 2
+    ((3,), 257, 0.5), ((3,), 513, 0.5), ((3,), 1025, 0.5),  # the first clusters of 4, 8 and 16
+    ((2,), 5120, 0.5), ((2,), 5121, 0.5),  # the last N of the shared route, the first of the global one
+    ((1,), 8192, 0.5),  # phase 10's large case (global route)
 ])
 def test_nms_kernel_matches_fixpoint(cuda_device, lead, n, thr):
-    """K3 at the main path's shapes and at block edges, on quantized boxes
-    and scores (ties, IoUs exactly at the threshold), index-exact."""
+    """K3 at the main path's shapes, at block edges, at every cluster size
+    the wrapper picks and at the route boundary, on quantized boxes and
+    scores (ties, IoUs exactly at the threshold), index-exact."""
     keep = assert_kernel_matches_fixpoint(cuda_device, *nms_case(np.random.default_rng(n), lead, n), thr)
     assert n < 64 or 0 < keep.sum() < keep.numel()
 
@@ -250,38 +255,96 @@ def test_nms_kernel_edge_cases(cuda_device):
 
 
 @pytest.mark.cuda
-def test_nms_kernel_batched_equals_per_problem_and_repeats_bitwise(cuda_device, monkeypatch):
-    """One launch over [2, 5, 2000] equals a launch per problem; two calls
-    give the same bits; a scratch budget that forces chunks of problems
-    gives the same answer in one launch pair per chunk."""
+def test_nms_kernel_batched_equals_per_problem_and_repeats_bitwise(cuda_device):
+    """One launch over [2, 5, 2000] equals a launch per problem and the
+    fixpoint; two calls give the same bits."""
     boxes, scores, valid = (x.to(cuda_device) for x in nms_case(np.random.default_rng(24), (2, 5), 2000))
-    _, sboxes, svalid = pnms.score_order(boxes, scores, valid)
-    alive = pnms.nms_cuda(sboxes, svalid, 0.7)
+    eff, order = pnms.effective_order(scores, valid)
+    keep = pnms.nms_cuda(boxes, eff, order, 0.7)
     for i in range(2):
         for j in range(5):
-            assert torch.equal(pnms.nms_cuda(sboxes[i, j].contiguous(), svalid[i, j].contiguous(), 0.7), alive[i, j])
-    assert torch.equal(pnms.nms_cuda(sboxes, svalid, 0.7), alive)
-    assert torch.equal(alive, pnms._nms_fixpoint(sboxes, svalid, 0.7))
-    monkeypatch.setattr(pnms, "SCRATCH_BUDGET", 3 * pnms.scratch_bytes(1, 2000))  # chunks of 3, 3, 3, 1
+            one = pnms.nms_cuda(boxes[i, j].contiguous(), eff[i, j].contiguous(), order[i, j].contiguous(), 0.7)
+            assert torch.equal(one, keep[i, j])
+    assert torch.equal(pnms.nms_cuda(boxes, eff, order, 0.7), keep)
+    assert torch.equal(keep, pnms.nms_mask(boxes, scores, valid, iou_threshold=0.7, algorithm="fixpoint")[0])
+
+
+@pytest.mark.cuda
+def test_nms_kernel_global_route_in_forced_chunks(cuda_device, monkeypatch):
+    """The global route (N = 5121, bitmask in device memory) with a scratch
+    budget of two problems: chunks of 2, 2, 1, one launch each, the same
+    bits as one launch and as the fixpoint."""
+    boxes, scores, valid = (x.to(cuda_device) for x in nms_case(np.random.default_rng(26), (5,), 5121))
+    eff, order = pnms.effective_order(scores, valid)
+    assert pnms.route(5121) == "global"
+    whole = pnms.nms_cuda(boxes, eff, order, 0.5)
+    monkeypatch.setattr(pnms, "SCRATCH_BUDGET", 2 * pnms.scratch_bytes(1, 5121))
     before = pnms.launches["nms"]
-    chunked = pnms.nms_cuda(sboxes, svalid, 0.7)
-    assert pnms.launches["nms"] == before + 4
-    assert torch.equal(chunked, alive)
+    chunked = pnms.nms_cuda(boxes, eff, order, 0.5)
+    assert pnms.launches["nms"] == before + 3
+    assert torch.equal(chunked, whole)
+    assert torch.equal(whole, pnms.nms_mask(boxes, scores, valid, iou_threshold=0.5, algorithm="fixpoint")[0])
+
+
+@pytest.mark.cuda
+def test_nms_kernel_score_edge_cases(cuda_device):
+    """The kernel's candidate test against `score_order`'s: scores at and
+    next to NEG_INF / 2, NaN and +-inf scores, no `valid` at all, and
+    bfloat16 and float16 scores (cast to float32 for the kernel, with the
+    threshold of their own dtype; float16 without flags, as NEG_INF
+    overflows it); all invalid keeps nothing."""
+    boxes, scores, valid = nms_case(np.random.default_rng(27), (4,), 300)
+    base = torch.tensor(pnms.NEG_INF / 2, dtype=torch.float32)
+    scores[0, :30] = base
+    scores[0, 30:60] = torch.nextafter(base, torch.tensor(0.0))
+    scores[0, 60:90] = torch.nextafter(base, torch.tensor(-1.0))
+    scores[1, ::7] = float("nan")
+    scores[1, 1::7] = float("inf")
+    scores[2, ::5] = -float("inf")
+    valid[3] = False
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        s = scores.to(dtype)
+        for v in (valid, None) if dtype != torch.float16 else (None,):  # NEG_INF overflows float16
+            keep = assert_kernel_matches_fixpoint(cuda_device, boxes, s, v, 0.5)
+            if v is not None:
+                assert not keep[3].any()
+
+
+@pytest.mark.cuda
+def test_nms_kernel_layout_and_cluster_refusal(cuda_device, monkeypatch):
+    """The wrapper's shared-memory sizes are the kernel's own
+    (`sfvos_nms_shared_bytes`); a configuration the card cannot place (the
+    shared route forced at 8192 boxes: 0.5 MB a CTA) raises, before any
+    launch, and falls back to nothing."""
+    lib = pnms._library()
+    for n in (1, 65, 129, 1000, 2000, 5120, 5121, 8192, pnms.KERNEL_MAX_N):
+        for c in (1, 2, 4, 8, 16):
+            for route in ("shared", "global"):
+                assert lib.sfvos_nms_shared_bytes(n, c, int(route == "global")) == pnms.shared_bytes(n, c, route)
+    monkeypatch.setattr(pnms, "SHARED_BUDGET", 1 << 30)
+    boxes, scores, valid = (x.to(cuda_device) for x in nms_case(np.random.default_rng(28), (1,), 8192))
+    before = pnms.launches["nms"]
+    with pytest.raises(RuntimeError, match="cannot place a cluster|set-up failed"):
+        pnms.nms_mask(boxes, scores, valid, iou_threshold=0.5)
+    assert pnms.launches["nms"] == before
 
 
 @pytest.mark.cuda
 def test_nms_kernel_path_has_no_host_synchronize(cuda_device):
-    """`nms_mask`'s K3 path (sort, gather, kernel, scatter) under the sync
-    debug mode "error", which raises on any synchronizing call; and no box
-    at all launches nothing."""
+    """`nms_mask`'s K3 path (the effective scores, their sort, the kernel)
+    under the sync debug mode "error", which raises on any synchronizing
+    call, on both routes; and no box at all launches nothing."""
     boxes, scores, valid = (x.to(cuda_device) for x in nms_case(np.random.default_rng(25), (8, 5), 1000))
+    large = [x.to(cuda_device) for x in nms_case(np.random.default_rng(29), (1,), 8192)]
+    pnms.nms_mask(*large, iou_threshold=0.5)  # builds and prepares outside the checked region
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         keep, _ = pnms.nms_mask(boxes, scores, valid, iou_threshold=0.7)
+        large_keep, _ = pnms.nms_mask(*large, iou_threshold=0.5)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert keep.shape == (8, 5, 1000)
+    assert keep.shape == (8, 5, 1000) and large_keep.shape == (1, 8192)
     before = pnms.launches["nms"]
     keep, order = pnms.nms_mask(boxes[:, :, :0], scores[:, :, :0], valid[:, :, :0], iou_threshold=0.7)
     assert keep.shape == (8, 5, 0) and pnms.launches["nms"] == before

@@ -174,42 +174,127 @@ def test_nms_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     """K3's input checks run before any build or launch, so they are
     testable without the card; so is the chunking of problems, a function
     of the shapes."""
-    boxes, valid = torch.zeros(2, 5, 64, 4), torch.ones(2, 5, 64, dtype=torch.bool)
-    pnms._check_nms_inputs(boxes, valid)
-    pnms._check_nms_inputs(boxes[:, :, :0], valid[:, :, :0])
+    boxes, eff = torch.zeros(2, 5, 64, 4), torch.zeros(2, 5, 64)
+    order = torch.arange(64).expand(2, 5, 64).contiguous()
+    pnms._check_nms_inputs(boxes, eff, order)
+    pnms._check_nms_inputs(boxes[:, :, :0], eff[:, :, :0], order[:, :, :0])
+    pnms._check_nms_inputs(boxes, eff.bfloat16(), order)
+    pnms._check_nms_inputs(boxes, eff.half(), order)
     with pytest.raises(TypeError, match="float32 boxes"):
-        pnms._check_nms_inputs(boxes.double(), valid)
+        pnms._check_nms_inputs(boxes.double(), eff, order)
     with pytest.raises(TypeError, match="float32 boxes"):
-        pnms._check_nms_inputs(boxes.bfloat16(), valid)
-    with pytest.raises(TypeError, match="bool valid"):
-        pnms._check_nms_inputs(boxes, valid.to(torch.uint8))
-    for b, v in ((boxes[..., :3], valid), (boxes, valid[..., :63]), (boxes[0, 0, 0], valid[0, 0, 0]), (boxes, valid[0])):
+        pnms._check_nms_inputs(boxes.bfloat16(), eff, order)
+    with pytest.raises(TypeError, match="float16 or bfloat16 scores"):
+        pnms._check_nms_inputs(boxes, eff.double(), order)
+    with pytest.raises(TypeError, match="int64 order"):
+        pnms._check_nms_inputs(boxes, eff, order.int())
+    for b, e, o in ((boxes[..., :3], eff, order), (boxes, eff[..., :63], order), (boxes, eff, order[..., :63]),
+                    (boxes[0, 0, 0], eff[0, 0, 0], order[0, 0, 0]), (boxes, eff[0], order[0])):
         with pytest.raises(ValueError, match=r"\[\.\.\., N, 4\]"):
-            pnms._check_nms_inputs(b, v)
+            pnms._check_nms_inputs(b, e, o)
     with pytest.raises(ValueError, match="contiguous"):
-        pnms._check_nms_inputs(boxes.transpose(0, 1), valid.transpose(0, 1))
+        pnms._check_nms_inputs(boxes.transpose(0, 1), eff.transpose(0, 1), order.transpose(0, 1))
     with pytest.raises(ValueError, match="contiguous"):
-        pnms._check_nms_inputs(boxes, valid.transpose(0, 1).contiguous().transpose(0, 1))
+        pnms._check_nms_inputs(boxes, eff.transpose(0, 1).contiguous().transpose(0, 1), order)
     with pytest.raises(ValueError, match="share one device"):
-        pnms._check_nms_inputs(boxes, valid.to("meta"))
+        pnms._check_nms_inputs(boxes, eff.to("meta"), order)
+    with pytest.raises(ValueError, match="share one device"):
+        pnms._check_nms_inputs(boxes, eff, order.to("meta"))
     shifted = torch.empty(boxes.numel() + 1)[1:].view(boxes.shape)  # contiguous, 4 bytes into its storage
     with pytest.raises(ValueError, match="16-byte aligned"):
-        pnms._check_nms_inputs(shifted, valid)
+        pnms._check_nms_inputs(shifted, eff, order)
     n = pnms.KERNEL_MAX_N + 1
     with pytest.raises(ValueError, match=f"at most {pnms.KERNEL_MAX_N}"):
-        pnms._check_nms_inputs(torch.zeros(1, n, 4), torch.ones(1, n, dtype=torch.bool))
+        pnms._check_nms_inputs(torch.zeros(1, n, 4), torch.zeros(1, n), torch.zeros(1, n, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pnms.nms_cuda(boxes, valid, 0.5)
+        pnms.nms_cuda(boxes, eff, order, 0.5)
     with pytest.raises(ValueError, match="no NMS for device meta"):
-        pnms.nms_mask(boxes.to("meta"), torch.zeros(2, 5, 64, device="meta"), valid.to("meta"))
-    # Scratch of [40, 1000] is 5.12 MB: one launch pair; one problem of
-    # 90,000 boxes needs 1.0 GB, above the budget: one problem a launch.
+        pnms.nms_mask(boxes.to("meta"), torch.zeros(2, 5, 64, device="meta"), torch.ones(2, 5, 64, dtype=torch.bool, device="meta"))
+    # The shared route takes no scratch and every problem in one launch;
+    # the global route's bitmask is 8.4 MB a problem at 8192 boxes (32 to
+    # the budget), 0.54 GB at 65536 (one a launch, over the budget).
     assert pnms.problems_per_launch(40, 1000) == 40
     assert pnms.problems_per_launch(10, 2000) == 10
-    assert pnms.problems_per_launch(3, 90_000) == 1
-    assert pnms.problems_per_launch(10**6, 64) == pnms.KERNEL_MAX_PROBLEMS
-    assert pnms.problems_per_launch(100, 8192) == pnms.SCRATCH_BUDGET // (8192 * 128 * 8)
-    assert pnms.scratch_bytes(40, 1000) == 5_120_000 and pnms.scratch_bytes(1, 90_000) == 1_013_040_000
+    assert pnms.problems_per_launch(3, 60_000) == 1
+    assert pnms.problems_per_launch(10**9, 64) == pnms.KERNEL_MAX_PROBLEMS
+    assert pnms.problems_per_launch(100, 8192) == pnms.SCRATCH_BUDGET // (8192 * 128 * 8) == 32
+    assert pnms.scratch_bytes(40, 1000) == 0 and pnms.scratch_bytes(1, 60_000) == 16 * 59 * 64 * 938 * 8
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.5, 0.7])
+def test_kernel_pair_test_with_early_out_equals_box_iou(thr):
+    """K3's pair test (`pair_overlaps_plain`: no division where the boxes
+    do not overlap on both axes, tested as the kernel tests it) against
+    `box_iou(a, b) > thr`, bit for bit, on f32 edge cases: zero
+    width and height, touching edges and corners, identical and nested
+    boxes, inverted boxes, subnormal overlaps, NaN and +-inf coordinates,
+    IoU exactly at the threshold, and quantized random boxes."""
+    inf, nan, tiny = float("inf"), float("nan"), 1e-45
+    edge = [
+        [0, 0, 10, 10], [0, 0, 10, 10], [10, 0, 20, 10], [0, 10, 10, 20], [10, 10, 20, 20],  # identical, touching
+        [5, 5, 5, 15], [5, 5, 15, 5], [5, 5, 5, 5],  # zero width, zero height, a point
+        [0, 0, 20, 10], [0, 0, 20, 20], [2, 2, 8, 8], [10, 10, 0, 0], [8, 8, 2, 2],  # IoU 0.5, nested, inverted
+        [0, 0, tiny, 10], [-tiny, 0, 0, 10], [9.999999, 0, 20, 10],  # subnormal and one-ulp overlaps
+        [nan, 0, 10, 10], [0, nan, 10, 10], [0, 0, nan, 10], [nan, nan, nan, nan],
+        [-inf, -inf, inf, inf], [0, 0, inf, 10], [-inf, 0, 10, 10], [inf, inf, inf, inf], [-inf, 0, -inf, 10],
+        [0, -inf, 10, inf], [5, 5, inf, inf],
+    ]
+    rng = np.random.default_rng(40)
+    rand = random_boxes(rng, 40, extent=30.0, quantum=2.0)
+    boxes = torch.cat([torch.tensor(edge, dtype=torch.float32), torch.from_numpy(rand)])
+    got = pnms.pair_overlaps_plain(boxes, boxes, thr)
+    want = pboxes.box_iou(boxes, boxes) > thr
+    assert torch.equal(got, want)
+    lt = torch.maximum(boxes[:, None, :2], boxes[None, :, :2])
+    rb = torch.minimum(boxes[:, None, 2:], boxes[None, :, 2:])
+    skipped = ~(rb > lt).all(-1)
+    assert skipped.sum() > boxes.shape[0] and (~skipped).sum() > boxes.shape[0]  # both branches taken
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_kernel_candidate_flag_equals_score_order(dtype):
+    """The kernel tests `eff > flag_min` on the scores cast to float32, with
+    `_FLAG_MIN[dtype]`; `score_order` tests `eff > NEG_INF / 2` in the
+    scores' own dtype. Equal on every value near the threshold, on -1e10,
+    +-inf and NaN, valid or not (float16: no flags)."""
+    base = torch.tensor([pnms.NEG_INF / 2], dtype=dtype)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    near = (base.view(bits) + torch.tensor([-1, 0, 1], dtype=bits)).view(dtype)  # the threshold and its neighbours
+    special = torch.tensor([pnms.NEG_INF, -float("inf"), float("inf"), float("nan"), 0.0, -4e9, -6e9]).to(dtype)
+    scores = torch.cat([near, special, base])
+    # NEG_INF overflows float16, which `full_like` refuses: float16 scores come without flags.
+    valid = None if dtype == torch.float16 else torch.arange(scores.numel()) % 3 != 1
+    eff, order = pnms.effective_order(scores, valid)
+    _, _, svalid = pnms.score_order(torch.zeros(scores.numel(), 4), scores, valid)
+    kernel_flag = eff.float() > pnms._FLAG_MIN[dtype]
+    assert torch.equal(kernel_flag[order], svalid)
+    assert svalid.any() and not svalid.all()
+
+
+def test_nms_kernel_route_cluster_and_scratch_by_n():
+    """K3's shape functions: the cluster size (about two 64-box blocks a
+    CTA, 1 to 16), the route (the bitmask in shared memory up to
+    SHARED_ROUTE_MAX_N = 5120 boxes, then in device memory), the shared
+    memory a CTA takes (below the budget on the shared route), the
+    scratch and the problems per launch; all from the shapes alone."""
+    sizes = {1: 1, 63: 1, 64: 1, 65: 1, 127: 1, 128: 1, 129: 2, 256: 2, 257: 4, 512: 4, 513: 8, 1000: 8, 1024: 8,
+             1025: 16, 2000: 16, 8192: 16, pnms.KERNEL_MAX_N: 16}
+    assert {n: pnms.cluster_size(n) for n in sizes} == sizes
+    assert pnms.SHARED_ROUTE_MAX_N == 5120
+    for n in (1, 64, 65, 1000, 2000, 4096, 5120):
+        assert pnms.route(n) == "shared" and pnms.scratch_bytes(7, n) == 0
+        assert pnms.shared_bytes(n, pnms.cluster_size(n), "shared") <= pnms.SHARED_BUDGET
+    for n in (5121, 8192, pnms.KERNEL_MAX_N):
+        assert pnms.route(n) == "global"
+        assert pnms.shared_bytes(n, 16, "global") <= pnms.SHARED_BUDGET < pnms.shared_bytes(n, 16, "shared")
+    # 8192 boxes: 128 blocks, 8 a CTA of 16; the layout of csrc/nms.cu.
+    assert pnms.shared_bytes(8192, 16, "global") == 24 * 64 * 8 + 3 * 8 * 8 + 3 * 8 * 128
+    assert pnms.shared_bytes(8192, 16, "shared") == pnms.shared_bytes(8192, 16, "global") + 8 * 8 * 64 * 128
+    assert pnms.scratch_bytes(3, 8192) == 3 * 8192 * 128 * 8
+    assert pnms.scratch_bytes(1, 5121) == 16 * 6 * 64 * 81 * 8  # C does not divide W = 81: 96 blocks of rows
+    assert pnms.problems_per_launch(40, 5120) == 40 and pnms.problems_per_launch(40, 5121) == 40
+    assert pnms.problems_per_launch(1000, 5121) == pnms.SCRATCH_BUDGET // pnms.scratch_bytes(1, 5121)
+    assert pnms.problems_per_launch(0, 1000) == 0
 
 
 def test_nms_rejects_an_unknown_algorithm():
