@@ -10,10 +10,13 @@ Phases, each fatal on failure:
              each kernel's registers and spills;
 2. main    - `build_pipeline(3, 3, (480, 854), bf16)` with seeded random
              weights, `infer_sequence` over a 20-frame clip (first, carry and
-             ragged-tail superchunks), launch counts read around that run
+             ragged-tail superchunks) on the CUDA graph path, the default on
+             the card (each key's first superchunk eager, then captured;
+             later ones replayed), launch counts read around that run
              (NMS twice per superchunk), frames/s, peak device memory; one
              superchunk's real proposals and detection boxes, and the
-             candidates of its two NMS calls, are kept for phases 4 and 6;
+             candidates of its two NMS calls, are kept (on the eager path,
+             same model) for phases 4 and 6;
 3. train   - `Trainer` on the same full-width model (default
              DetectionConfig: 2000 proposals, 512 box and 128 mask rois per
              frame), 8 steps on one seeded window of moving blobs from
@@ -110,7 +113,16 @@ Phases, each fatal on failure:
              median of 10 in turns), phase 8's 7x7 checkpoint through
              `load_init` into an s2d model; the NMS kernel and the blocked
              sweep against the fixpoint at N = 8192 (index-exact, times,
-             peak memory); and `torch_bench.py --transport yuv420 --runs 2`.
+             peak memory); and `torch_bench.py --transport yuv420 --runs 2`;
+11. graphs - the superchunk's CUDA graphs against the eager path on one
+             model at full width, at superchunk 8 over 20 frames and at 32
+             over 64: bit for bit for both transports with and without
+             instance masks (first and warm graph runs), launches counted per
+             replay, the host's part of a run under the sync debug mode
+             "error" on both paths, peak device memory of each path, frames/s
+             in turns and capture times; other weights loaded in place
+             replayed with no new capture, a replaced parameter recaptured.
+             Phases 2 and 7-10 run on the graph path already.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -413,7 +425,9 @@ def phase_main(ra, pipeline_mod) -> tuple[dict, dict, dict]:
     fps = 20 / statistics.median(runs)
     log(f"main: warm runs {', '.join(f'{r:.3f}' for r in runs)} s -> {fps:.2f} frames/s (median); "
         f"peak device memory {peak / 2**30:.2f} GiB")
-    rois, nms_inputs = main_path_rois(pipeline_mod, pipe, clip)
+    # A replay calls no Python wrapper: the rois are kept on the eager path, same model.
+    eager = pipeline_mod.Pipeline(model, pipe.transform, superchunk=SC, graphs=False)
+    rois, nms_inputs = main_path_rois(pipeline_mod, eager, clip)
     log(f"main: kept one superchunk's rois: proposals {tuple(rois[7].shape)}, detections {tuple(rois[14].shape)}; "
         f"NMS candidates: rpn {tuple(nms_inputs['rpn'][0].shape)}, class-keyed {tuple(nms_inputs['class_keyed'][0].shape)}")
     return counts, rois, nms_inputs
@@ -1764,6 +1778,123 @@ def phase_transport_stem(ra, pipeline_mod, cli_dir: Path) -> dict:
     return out
 
 
+# Phase 11: the superchunk's CUDA graphs against the eager path.
+GRAPH_CELLS = ((SC, 20), (32, 64))  # (superchunk, frames): phase 2's clip; the CLIs' superchunk over 64 frames
+GRAPH_RUNS = 3
+
+
+def same_detections(got: list, want: list) -> bool:
+    """Two `infer_sequence` results equal bit for bit, every key of every frame."""
+    return len(got) == len(want) and all(
+        g.keys() == w.keys() and all(np.array_equal(g[k], w[k]) for k in g) for g, w in zip(got, want))
+
+
+def host_part_without_sync(pipe, clip) -> list:
+    """The host's part of an `infer_sequence` call (staging, uploads, the
+    superchunks) under the sync debug mode "error", which raises on any
+    synchronizing call; then the fetch, outside it."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pipe.infer_chunks(clip)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    from slowfast_vos_tpu_torch.models.pipeline import frame_detections
+
+    return frame_detections(pending, clip.shape[0], clip.shape[2])
+
+
+def phase_graphs(ra, pipeline_mod) -> dict:
+    """The superchunk's CUDA graphs (`models/graphs.py`) at full width
+    (480x854, 3-3, bf16, seeded weights) at superchunk 8 over phase 2's
+    20 frames and at 32 over 64: a graph pipeline and an eager one
+    (`graphs=False`) over the same model; peak device memory of an eager
+    run, of the first graph run (captures) and of a warm one; both
+    transports with and without instance masks, the first graph run and a
+    warm one each equal to the eager run bit for bit; a warm graph run
+    counting one launch of each pool and two of K3 per superchunk, each
+    graph recording the same; the host's part of a run on either path
+    under the sync debug mode "error"; frames/s of both paths in turns
+    (median of 3) and each graph's capture time; at superchunk 8, other
+    weights loaded in place and replayed against eager with no new capture,
+    then a replaced parameter recaptured."""
+    out = {}
+    for sc, frames in GRAPH_CELLS:
+        pipe, model = pipeline_mod.build_pipeline(3, 3, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=sc)
+        pipeline_mod.init_weights(model, seed=0)
+        eager = pipeline_mod.Pipeline(model, pipe.transform, superchunk=sc, graphs=False)
+        check(pipe.graphs is not None and eager.graphs is None, "graphs are not on by default on the card")
+        clip = np.random.default_rng(1).integers(0, 256, (frames, *DRIVER_HW, 3), dtype=np.uint8)
+        chunks, tag = -(-frames // sc), f"superchunk {sc}, {frames} frames"
+        # A replay's intermediates lie in the graphs' pool, which the
+        # allocator counts as reserved, not allocated: both peaks, each run
+        # from an emptied cache.
+        cell = {"peak_gib": {}, "peak_reserved_gib": {}}
+        runs = {}
+        for name, p in (("eager", eager), ("graphs first run", pipe), ("graphs warm", pipe)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            runs[name] = p.infer_sequence(clip)
+            torch.cuda.synchronize()
+            cell["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+            cell["peak_reserved_gib"][name] = torch.cuda.max_memory_reserved() / 2**30
+        check(same_detections(runs["graphs first run"], runs["eager"]) and same_detections(runs["graphs warm"], runs["eager"]),
+              f"graphs: {tag}: the graph path differs from the eager path")
+        log(f"graphs: {tag}: peak device memory allocated / reserved: " + ", ".join(
+            f"{k} {cell['peak_gib'][k]:.2f} / {cell['peak_reserved_gib'][k]:.2f} GiB" for k in runs))
+
+        for transport in pipeline_mod.TRANSPORTS:
+            for masks in (False, True):
+                want = eager.infer_sequence(clip, transport=transport, instance_masks=masks)
+                got = [pipe.infer_sequence(clip, transport=transport, instance_masks=masks) for _ in range(2)]
+                equal = all(same_detections(g, want) for g in got)
+                log(f"graphs: {tag}: {transport}, instance masks {masks}: first and warm graph runs equal to eager "
+                    f"bit for bit: {equal} ({sum(int(d['valid'].sum()) for d in want)} valid detections)")
+                check(equal, f"graphs: {tag}: {transport}, instance masks {masks}: the graph path differs from eager")
+        check(pipe.graphs.captures == len(pipe.graphs.graphs) == 8,
+              f"graphs: {pipe.graphs.captures} captures of {len(pipe.graphs.graphs)} keys, 8 expected")
+        cell["capture_s"] = {f"{'yuv420' if k[0] else 'rgb'} {'carry' if k[3] else 'first'}"
+                             f"{' instance masks' if k[4] else ''}": g.capture_s for k, g in pipe.graphs.graphs.items()}
+        for g in pipe.graphs.graphs.values():
+            check(g.launches == {7: 1, 14: 1, "nms": 2}, f"a graph recorded {g.launches}")
+        ra.launches.clear()
+        pipe.infer_sequence(clip)
+        counts = {k: ra.launches[k] for k in FORWARD_KEYS}
+        check(counts == {7: chunks, 14: chunks, "nms": 2 * chunks}, f"graphs: {tag}: warm run launches {counts}")
+        log(f"graphs: {tag}: a warm graph run launched pool7 {counts[7]}, pool14 {counts[14]}, nms {counts['nms']} "
+            f"(per replay: pool7 1, pool14 1, nms 2); capture s " + ", ".join(f"{k} {v:.3f}" for k, v in cell["capture_s"].items()))
+
+        for name, p in (("eager", eager), ("graphs", pipe)):
+            check(same_detections(host_part_without_sync(p, clip), runs["eager"]), f"graphs: {name} path under sync debug")
+        log(f"graphs: {tag}: the host's part of a run under sync debug \"error\" on both paths: no synchronize")
+
+        timed = turns({"eager": lambda: eager.infer_sequence(clip), "graphs": lambda: pipe.infer_sequence(clip)}, GRAPH_RUNS)
+        cell["runs_s"] = timed
+        cell["frames_per_s"] = {k: frames / statistics.median(v) for k, v in timed.items()}
+        log(f"graphs: {tag}: in turns, " + "; ".join(
+            f"{k} {', '.join(f'{r:.3f}' for r in v)} s -> {cell['frames_per_s'][k]:.2f} frames/s" for k, v in timed.items()))
+
+        if sc == SC:
+            _, other = pipeline_mod.build_pipeline(3, 3, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=sc)
+            model.load_state_dict(pipeline_mod.init_weights(other, seed=1).state_dict())
+            del other
+            captures = pipe.graphs.captures
+            reloaded = pipe.infer_sequence(clip)
+            check(same_detections(reloaded, eager.infer_sequence(clip)) and not same_detections(reloaded, runs["eager"])
+                  and pipe.graphs.captures == captures, "graphs: weights loaded in place were not replayed right")
+            head = model.roi_heads.box_predictor.cls_score
+            head.weight = torch.nn.Parameter(head.weight.detach().clone())
+            check(same_detections(pipe.infer_sequence(clip), reloaded) and pipe.graphs.captures == captures + 2,
+                  "graphs: a replaced parameter was not recaptured")
+            log(f"graphs: {tag}: other weights loaded in place replayed equal to eager with no new capture; a "
+                f"replaced parameter recaptured both graphs ({captures} -> {pipe.graphs.captures} captures)")
+        out[f"superchunk {sc}"] = cell
+        del pipe, eager, model, runs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -1814,6 +1945,9 @@ def main() -> int:
         t0 = time.perf_counter()
         transport_stem = phase_transport_stem(ra, pipeline_mod, Path(cli_dir))  # reads phase 8's checkpoint
     log(f"transport and stem: phase 10 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graphs = phase_graphs(ra, pipeline_mod)
+    log(f"graphs: phase 11 in {time.perf_counter() - t0:.1f} s")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
         key = "nms" if r["name"] == "nms" else ("backward", size) if "backward" in r["name"] else size
@@ -1827,6 +1961,7 @@ def main() -> int:
     log(json.dumps({"cli": {k: v for k, v in cli.items() if k != "counts"}}))
     log(json.dumps({"parallel": {k: v for k, v in parallel.items() if k != "counts"}}))
     log(json.dumps({"transport_stem": {k: v for k, v in transport_stem.items() if k != "counts"}}))
+    log(json.dumps({"graphs": graphs}))
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

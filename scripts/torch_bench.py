@@ -27,6 +27,9 @@ one that ran.
 `device_fps`: every superchunk's window uploaded to the card first (in the
 transport's form), the timed loop runs only the superchunks and ends in one
 synchronize.
+`graphs`: both numbers are taken on the pipeline's default path on the card,
+one CUDA graph replay per superchunk (`models/graphs.py`); the record says
+which path ran, so no eager number is read as a graph one.
 `device_mfu`: the model's analytic FLOPs per frame times `device_median`
 over the H100 SXM's dense bf16 tensor-core peak.
 
@@ -101,7 +104,7 @@ def device_fps(pipe, clip: np.ndarray, transport: str, runs: int):
     def run_once() -> float:
         carry, total = None, 0.0
         for images, valid in prepared:
-            outs, next_carry = pipe._superchunk(images, valid, carry)
+            outs, next_carry = pipe._run(images, valid, carry)
             carry = next_carry if use_carry else None
             total = total + outs[1].float().sum()  # scores: depend on the whole chunk
         return float(total)
@@ -141,6 +144,7 @@ def bench_config(slow: int, fast: int, *, transport: str, runs: int, device_name
         "config": config,
         "transport": transport,
         "superchunk": pipe.superchunk,
+        "graphs": pipe.graphs is not None,
         "card": device_name,
     }
     # Printed before the device columns, so a failure there still leaves a record.

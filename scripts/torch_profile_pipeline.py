@@ -4,16 +4,22 @@
     python3 scripts/torch_profile_pipeline.py
 
 Builds the full-width pipeline (DAVIS 480x854, SlowFast 3-3, bf16, seeded
-random weights), warms it up, then
+random weights) on both paths over one model: the CUDA graphs (the default
+on the card, one replay per superchunk) and the eager path (`graphs=False`),
+warms both up, then
 
-1. runs `infer_sequence` with every stage wrapped in a synchronize at both
-   ends and timed on the host clock (stages run back to back, so their
-   times add up to the run's; the synchronizes remove any overlap between
-   stages);
-2. runs it once more, unwrapped, under `torch.profiler`: the device's busy
-   and idle share of the run and the kernels with the most device time.
+1. runs `infer_sequence` on the eager path with every stage wrapped in a
+   synchronize at both ends and timed on the host clock (stages run back to
+   back, so their times add up to the run's; the synchronizes remove any
+   overlap between stages). A replay runs no Python, so the stages are the
+   eager path's only;
+2. runs each path once more, unwrapped, under `torch.profiler`: the
+   device's busy and idle share of the run and the kernels with the most
+   device time;
+3. times both paths' whole runs in turns (host clock, synchronized).
 
-Prints the card's name and power limit and one JSON line. Needs CUDA.
+Every number is labelled with the path that ran. Prints the card's name and
+power limit and one JSON line. Needs CUDA.
 """
 import argparse
 import collections
@@ -143,15 +149,31 @@ def main() -> int:
         3, 3, (480, 854), dtype=torch.bfloat16, device="cuda", superchunk=SUPERCHUNK
     )
     pipeline_mod.init_weights(model, seed=0)
+    paths = {"eager": pipeline_mod.Pipeline(model, pipe.transform, superchunk=SUPERCHUNK, graphs=False),
+             "graphs": pipe}
     clip = np.random.default_rng(1).integers(0, 256, (FRAMES, 480, 854, 3), dtype=np.uint8)
-    pipe.infer_sequence(clip)  # warm-up: kernel build, cuDNN algorithm choice
-    stages = stage_times(pipe, clip, RUNS)
+    for p in paths.values():
+        p.infer_sequence(clip)  # warm-up: kernel build, cuDNN set-up, graph capture
+    stages = stage_times(paths["eager"], clip, RUNS)
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"stage {k:24s} {v * 1e3:9.2f} ms  {v / stages['total']:6.1%}")
-    prof = device_profile(lambda: pipe.infer_sequence(clip), TOP)
-    print(f"device busy {prof.get('busy_share')}")
-    for k in prof.get("top_kernels", []):
-        print(f"kernel {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
+        print(f"stage (eager) {k:24s} {v * 1e3:9.2f} ms  {v / stages['total']:6.1%}")
+    profiles = {}
+    for name, p in paths.items():
+        profiles[name] = prof = device_profile(lambda: p.infer_sequence(clip), TOP)
+        print(f"{name}: wall {prof.get('wall_ms')} ms, device busy {prof.get('busy_share')}")
+        for k in prof.get("top_kernels", []):
+            print(f"{name}: kernel {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
+    walls = {name: [] for name in paths}
+    for _ in range(RUNS):
+        for name, p in paths.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.infer_sequence(clip)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    wall_ms = {name: float(np.median(v)) for name, v in walls.items()}
+    print("whole runs in turns (median of %d): " % RUNS + ", ".join(
+        f"{name} {ms:.2f} ms ({FRAMES / ms * 1e3:.2f} frames/s)" for name, ms in wall_ms.items()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -159,7 +181,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "frames": FRAMES, "superchunk": SUPERCHUNK,
-        "stages_ms": {k: v * 1e3 for k, v in stages.items()}, "profile": prof,
+        "stages_ms_eager": {k: v * 1e3 for k, v in stages.items()}, "profile": profiles,
+        "wall_ms_in_turns": wall_ms, "walls_ms": walls,
     }))
     return 0
 

@@ -1,0 +1,188 @@
+"""One CUDA graph per superchunk shape: the port's counterpart of the JAX
+package's one compiled executable per superchunk (`jax.jit` of
+`_superchunk_impl`, `_superchunk_first_impl` and `_superchunk_carry_impl`,
+`slowfast_vos_tpu/models/pipeline.py:90-98`).
+
+`Pipeline._superchunk` launches every kernel of a superchunk from Python
+(transform, backbone, RPN and K3, SlowFast, RoI heads with K1 and K3 again,
+paste, union, packbits). On the card the host's cost per launch, not the
+card, sets the pace. `SuperchunkGraphs` runs each superchunk key once
+eagerly and captures it, then replays the graph with one launch:
+
+* the key is what fixes the graph: first chunk or carried, the shape and
+  dtype of every input (the transport: RGB frames or YUV 4:2:0 planes),
+  instance masks or the packed union, and the TF32 switches;
+* the first superchunk of a key runs eagerly on the device's capture
+  stream, and its outputs are that call's result. The run also warms what
+  capture may not do: cuDNN's and cuBLAS's set-up on that stream (cuBLAS
+  keeps a workspace per stream for good), K3's once-per-configuration
+  `_prepared`. The allocator's cache is then emptied, as
+  `torch.cuda.graph` does, since an allocation that fails during a capture
+  cannot free cached blocks, and the same call is captured on that stream
+  (`capture_error_mode="thread_local"`: member threads of
+  `parallel/mesh.py::on_members` keep uploading, allocating and replaying
+  while one thread captures; only the capturing thread is held to
+  capture's rules). Every pipeline on a device shares that one stream, so
+  the warm-ups' cached blocks serve each other, and its lock makes the
+  captures on a device take turns;
+* every later superchunk of the key copies its inputs into the graph's
+  static input tensors (allocated outside the graphs' memory pool),
+  replays, and clones the outputs and the carry out before anything else
+  can replay. The graphs of one pipeline share one memory pool: they never
+  run at once, and nothing but static outputs, cloned at once, outlives a
+  replay;
+* kernel launches recorded at capture (`ops/cuda_build.py::
+  recording_launches`) are counted again at every replay, so the launch
+  counts of a run are those of the eager path;
+* a graph reads the model's parameters and buffers where they were at
+  capture. In-place updates (`load_state_dict`, optimizer steps, running
+  statistics) are what a replay then computes with; a parameter or buffer
+  that moved (`load_state_dict(assign=True)`, `.to()`, a replaced tensor)
+  drops every graph, and the next superchunk captures anew. A model in
+  train mode raises: the graphs are eval-mode computations.
+
+A capture or replay that fails raises; nothing falls back to the eager
+path. One lock per runner serializes its calls, so threads may share a
+pipeline (`DeviceParallelInference` over a device list that repeats a
+device); threads on their own pipelines run side by side.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+import time
+import weakref
+
+import torch
+
+from slowfast_vos_tpu_torch.ops import cuda_build
+
+_capture_streams: dict = {}  # device -> (its capture stream, the lock its users take)
+_capture_streams_lock = threading.Lock()
+
+
+def capture_stream(device: torch.device) -> tuple:
+    """The device's capture stream and the lock that serializes its use,
+    made at the first call for the device: a stream is a process-wide
+    resource here (cuBLAS's workspace and the allocator's cached blocks are
+    kept per stream)."""
+    with _capture_streams_lock:
+        if device not in _capture_streams:
+            _capture_streams[device] = (torch.cuda.Stream(device), threading.Lock())
+        return _capture_streams[device]
+
+
+@dataclasses.dataclass
+class CapturedSuperchunk:
+    graph: torch.cuda.CUDAGraph
+    inputs: list  # static: the window's planes, feat_valid, the carry's levels
+    outputs: tuple  # (detections, carry) as `_superchunk` returns them, in the pool
+    launches: dict  # kernel launches per replay, by `cuda_build.launches` key
+    capture_s: float
+
+
+def _spec(x: torch.Tensor) -> tuple:
+    return tuple(x.shape), x.dtype, x.stride()
+
+
+def superchunk_key(images, feat_valid, carry, instance_masks: bool) -> tuple:
+    """What fixes a superchunk's graph (see the module docstring)."""
+    planes = images if isinstance(images, tuple) else (images,)
+    return (
+        isinstance(images, tuple),
+        tuple(_spec(p) for p in planes),
+        _spec(feat_valid),
+        None if carry is None else tuple(_spec(c) for c in carry),
+        instance_masks,
+        torch.backends.cudnn.allow_tf32,
+        torch.backends.cuda.matmul.allow_tf32,
+    )
+
+
+class SuperchunkGraphs:
+    """The CUDA graphs of one `Pipeline`'s superchunks, by `superchunk_key`.
+    Created with the pipeline; touches the card only at its first `run`."""
+
+    def __init__(self, pipe):
+        self.pipe = weakref.proxy(pipe)  # the pipeline owns the runner: no cycle keeps its graphs alive
+        self.graphs: dict[tuple, CapturedSuperchunk] = {}
+        self.captures = 0  # graphs captured over the runner's life
+        self._lock = threading.Lock()
+        self._addresses: tuple | None = None
+        self._pool = None
+
+    def weight_addresses(self) -> tuple:
+        """Where the model's parameters and buffers, and the pipeline's
+        anchors, lie: what a captured graph reads."""
+        m = self.pipe.model
+        return tuple(t.data_ptr() for t in itertools.chain(m.parameters(), m.buffers(), self.pipe.anchors))
+
+    def check_model(self) -> None:
+        """Raise unless the model is in eval mode; drop every graph, and
+        their memory pool, where a parameter or buffer moved since the last
+        check."""
+        if any(m.training for m in self.pipe.model.modules()):
+            raise RuntimeError("the superchunk graphs compute in eval mode; call model.eval() before inference")
+        addresses = self.weight_addresses()
+        if addresses != self._addresses:
+            self.graphs.clear()
+            self._pool = None
+            self._addresses = addresses
+
+    def run(self, images, feat_valid, carry=None, instance_masks: bool = False):
+        """`Pipeline._superchunk` on device inputs through the key's graph,
+        captured at the key's first call. Returns (outputs, carry), tensors
+        the caller owns."""
+        key = superchunk_key(images, feat_valid, carry, instance_masks)
+        sources = [*(images if isinstance(images, tuple) else (images,)), feat_valid, *(carry or ())]
+        with self._lock, torch.inference_mode():
+            self.check_model()
+            captured = self.graphs.get(key)
+            if captured is None:
+                return self._capture(key, sources, instance_masks)
+            for dst, src in zip(captured.inputs, sources):
+                dst.copy_(src, non_blocking=True)
+            captured.graph.replay()
+            cuda_build.count_replay(captured.launches)
+            outs, next_carry = captured.outputs
+            return tuple(o.clone() for o in outs), [c.clone() for c in next_carry]
+
+    def _capture(self, key, sources, instance_masks):
+        """The key's first superchunk: run eagerly on the capture stream,
+        then captured into a graph there. Returns the eager run's outputs."""
+        device = self.pipe.device
+        yuv, planes = key[0], len(key[1])
+        carried = key[3] is not None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        inputs = [torch.empty_like(s) for s in sources]
+        for dst, src in zip(inputs, sources):
+            dst.copy_(src, non_blocking=True)
+
+        def superchunk():
+            images = tuple(inputs[:planes]) if yuv else inputs[0]
+            carry = inputs[planes + 1:] if carried else None
+            return self.pipe._superchunk(images, inputs[planes], carry, instance_masks)
+
+        (stream, stream_lock), caller = capture_stream(device), torch.cuda.current_stream(device)
+        graph = torch.cuda.CUDAGraph()
+        with stream_lock:
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                result = superchunk()
+                for t in (*result[0], *result[1]):  # used on the caller's stream, freed there
+                    t.record_stream(caller)
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                with cuda_build.recording_launches() as launches:
+                    graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                    try:
+                        outputs = superchunk()
+                    finally:
+                        graph.capture_end()
+                capture_s = time.perf_counter() - t0
+            caller.wait_stream(stream)
+        self.graphs[key] = CapturedSuperchunk(graph, inputs, outputs, dict(launches), capture_s)
+        self.captures += 1
+        return result

@@ -24,6 +24,13 @@ device as RGB (`transport="rgb"`, the default) or as YUV 4:2:0 planes
 as well (JAX `_finalize_instances_impl`). `compute_sequence_features` runs
 only the frozen backbone and the RPN over a sequence (the proposal dump of
 `train/pretrain.py`).
+
+On the card every superchunk runs as a CUDA graph, one per superchunk shape
+(`models/graphs.py`: the counterpart of the JAX package's one compiled
+executable per superchunk); `Pipeline(..., graphs=False)` runs it eagerly,
+the CPU always does. Each window reaches the card from page-locked host
+memory without a host synchronize, so a run waits for the card only where
+`frame_detections` fetches its results.
 """
 from __future__ import annotations
 
@@ -34,12 +41,14 @@ import torch
 
 from slowfast_vos_tpu_torch.models.anchors import fpn_anchors
 from slowfast_vos_tpu_torch.models.config import DetectionConfig, SlowFastConfig
+from slowfast_vos_tpu_torch.models.graphs import SuperchunkGraphs
 from slowfast_vos_tpu_torch.models.heads import postprocess_detections
 from slowfast_vos_tpu_torch.models.layers import lecun_normal_
 from slowfast_vos_tpu_torch.models.resnet_fpn import FPN_STRIDES
 from slowfast_vos_tpu_torch.models.rpn import filter_proposals
 from slowfast_vos_tpu_torch.models.segmentation import SlowFastMaskRCNN
 from slowfast_vos_tpu_torch.models.transform import ImageTransform, rgb_to_yuv420
+from slowfast_vos_tpu_torch.ops.constants import device_constant
 from slowfast_vos_tpu_torch.ops.paste_masks import paste_masks_in_image
 from slowfast_vos_tpu_torch.ops.roi_align import ROI_SCALES, multiscale_roi_align
 
@@ -53,7 +62,7 @@ def packbits(x: torch.Tensor) -> torch.Tensor:
     w = x.shape[-1]
     x = torch.nn.functional.pad(x.to(torch.uint8), (0, -w % 8))
     bits = x.reshape(*x.shape[:-1], -1, 8)
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=x.device)
+    weights = device_constant(_BIT_WEIGHTS, torch.uint8, x.device)
     return (bits * weights).sum(dim=-1).to(torch.uint8)
 
 
@@ -84,9 +93,14 @@ def frame_detections(chunk_outputs: list, t: int, width: int, instance_masks: bo
 
 
 class Pipeline:
-    """Binds a model and the static geometry of one input resolution."""
+    """Binds a model and the static geometry of one input resolution.
 
-    def __init__(self, model: SlowFastMaskRCNN, transform: ImageTransform, *, superchunk: int = 32):
+    `graphs`: run each superchunk through its CUDA graph (`models/graphs.py`;
+    default: where the model is on a CUDA device); False runs it eagerly, as
+    the CPU does. Asking for graphs off the card raises."""
+
+    def __init__(self, model: SlowFastMaskRCNN, transform: ImageTransform, *, superchunk: int = 32,
+                 graphs: bool | None = None):
         self.model = model.eval()
         self.cfg: DetectionConfig = model.cfg
         self.sf: SlowFastConfig = model.sf
@@ -103,6 +117,11 @@ class Pipeline:
         f = self.sf.fast
         self.halo_left = f // 2
         self.halo_right = -(-f // 2) - 1
+
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"CUDA graphs run on a CUDA device; this pipeline's model is on {self.device}")
+        self.graphs = SuperchunkGraphs(self) if (on_card if graphs is None else graphs) else None
 
     def _roi_forward(self, enhanced, proposals, pvalid):
         """enhanced: 4 levels [E, h, w, 256]; proposals [E, P, 4] -> detections."""
@@ -178,6 +197,14 @@ class Pipeline:
         sc = feats[0].shape[0] - (self.sf.fast - 1)
         return self._detect_finalize(feats, feat_valid, sc, instance_masks)
 
+    def _run(self, images, feat_valid, carry=None, instance_masks=False):
+        """`_superchunk` on device inputs: replayed from its CUDA graph where
+        the pipeline has graphs, else eagerly. Returns (outputs, carry), each
+        tensor the caller's own."""
+        if self.graphs is None:
+            return self._superchunk(images, feat_valid, carry, instance_masks)
+        return self.graphs.run(images, feat_valid, carry, instance_masks)
+
     @torch.inference_mode()
     def forward_superchunk(self, images: torch.Tensor, feat_valid: torch.Tensor):
         """Public full-pipeline forward on one superchunk.
@@ -193,7 +220,7 @@ class Pipeline:
         else:
             images = torch.as_tensor(images, device=self.device)
         feat_valid = torch.as_tensor(feat_valid, dtype=torch.bool, device=self.device)
-        return self._superchunk(images, feat_valid)[0]
+        return self._run(images, feat_valid)[0]
 
     @torch.inference_mode()
     def compute_sequence_features(self, images: np.ndarray):
@@ -234,39 +261,58 @@ class Pipeline:
         until one fetch at the end. `transport="yuv420"` uploads each window
         as YUV 4:2:0 planes (uint8 frames with even H, W): half the bytes,
         with 4:2:0 chroma, so its pixels differ from "rgb"'s."""
-        t, w = images.shape[0], images.shape[2]
+        pending = self.infer_chunks(images, instance_masks=instance_masks, transport=transport)
+        return frame_detections(pending, images.shape[0], images.shape[2], instance_masks)
+
+    @torch.inference_mode()
+    def infer_chunks(self, images: np.ndarray, *, instance_masks: bool = False, transport: str = "rgb") -> list:
+        """The superchunks of `infer_sequence`, each one's outputs left on the
+        device: the host's part of a run, which never waits for the card."""
         use_carry = self.sf.fast > 1  # F = 1 has no overlap to carry
         carry = None
         pending = []
-        for c in range(0, t, self.superchunk):
+        for c in range(0, images.shape[0], self.superchunk):
             outs, next_carry = self.chunk_step(images, c, carry, instance_masks, transport)
             carry = next_carry if use_carry else None
             pending.append(outs)
-        return frame_detections(pending, t, w, instance_masks)
+        return pending
 
     def chunk_inputs(self, images: np.ndarray, c: int, carried: bool, transport: str = "rgb"):
         """The device inputs of the superchunk that starts at frame `c` of
         `images` [T, H, W, 3]: its window (the SC new frames when the overlap
         is `carried`, else with the halo; frames outside [0, T) zero) in
-        `transport` form, and feat_valid over the full window."""
+        `transport` form, and feat_valid over the full window. On the card
+        both are staged in page-locked host memory, so that their upload
+        neither waits for the card nor makes it wait."""
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, not {transport!r}")
         t = images.shape[0]
         widxs = np.arange(c - self.halo_left, c + self.superchunk + self.halo_right)
         idxs = widxs[self.sf.fast - 1 :] if carried else widxs
-        window = images[np.clip(idxs, 0, t - 1)].copy()
-        window[~((idxs >= 0) & (idxs < t))] = 0
+        outside = (idxs < 0) | (idxs >= t)
+        pin = self.device.type == "cuda"
         if transport == "yuv420":
-            dev_images = tuple(torch.from_numpy(p).to(self.device) for p in rgb_to_yuv420(window))
+            window = images[np.clip(idxs, 0, t - 1)]
+            window[outside] = 0
+            n, h, w = window.shape[:3]
+            planes = (torch.empty((n, h, w), dtype=torch.uint8, pin_memory=pin),
+                      torch.empty((n, h // 2, w // 2, 2), dtype=torch.uint8, pin_memory=pin))
+            rgb_to_yuv420(window, out=tuple(p.numpy() for p in planes))
         else:
-            dev_images = torch.from_numpy(window).to(self.device)
-        return dev_images, torch.from_numpy((widxs >= 0) & (widxs < t)).to(self.device)
+            planes = torch.empty((len(idxs), *images.shape[1:]), dtype=torch.from_numpy(images[:0]).dtype,
+                                 pin_memory=pin)
+            np.take(images, np.clip(idxs, 0, t - 1), axis=0, out=planes.numpy())
+            planes.numpy()[outside] = 0
+        valid = torch.empty(len(widxs), dtype=torch.bool, pin_memory=pin)
+        valid.numpy()[:] = (widxs >= 0) & (widxs < t)
+        upload = lambda x: x.to(self.device, non_blocking=True)  # noqa: E731
+        return (tuple(map(upload, planes)) if isinstance(planes, tuple) else upload(planes)), upload(valid)
 
     def chunk_step(self, images: np.ndarray, c: int, carry=None, instance_masks: bool = False, transport: str = "rgb"):
         """The superchunk of `infer_sequence` that starts at frame `c` of
-        `images` [T, H, W, 3] through `_superchunk`. Returns (outputs, carry)."""
+        `images` [T, H, W, 3] through `_run`. Returns (outputs, carry)."""
         dev_images, dev_valid = self.chunk_inputs(images, c, carry is not None, transport)
-        return self._superchunk(dev_images, dev_valid, carry, instance_masks)
+        return self._run(dev_images, dev_valid, carry, instance_masks)
 
 
 def build_pipeline(

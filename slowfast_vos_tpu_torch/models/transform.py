@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slowfast_vos_tpu_torch.ops.constants import device_constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -69,8 +71,8 @@ class ImageTransform:
         view of a channels-last NCHW tensor)."""
         rh, rw = self.resized_hw
         ch, cw = self.canvas_hw
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)[:, None, None]
-        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)[:, None, None]
+        mean = device_constant(IMAGENET_MEAN, torch.float32, x.device)[:, None, None]
+        std = device_constant(IMAGENET_STD, torch.float32, x.device)[:, None, None]
         x = F.interpolate((x - mean) / std, size=(rh, rw), mode="bilinear", align_corners=False, antialias=False)
         x = F.pad(x, (0, cw - rw, 0, ch - rh))
         return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
@@ -115,7 +117,7 @@ class ImageTransform:
     def transform_boxes(self, boxes: torch.Tensor) -> torch.Tensor:
         """Original-resolution XYXY -> canvas resolution (`transform.py:158-161`)."""
         ry, rx = self._box_ratios
-        return boxes * torch.tensor([rx, ry, rx, ry], dtype=boxes.dtype, device=boxes.device)
+        return boxes * device_constant((rx, ry, rx, ry), boxes.dtype, boxes.device)
 
     def masks_to_canvas(self, masks: torch.Tensor) -> torch.Tensor:
         """Binary gt masks [..., H, W] at the original resolution -> float32
@@ -137,22 +139,24 @@ class ImageTransform:
     def inverse_boxes(self, boxes: torch.Tensor) -> torch.Tensor:
         """Canvas resolution -> original resolution (postprocess step)."""
         ry, rx = self._box_ratios
-        return boxes / torch.tensor([rx, ry, rx, ry], dtype=boxes.dtype, device=boxes.device)
+        return boxes / device_constant((rx, ry, rx, ry), boxes.dtype, boxes.device)
 
 
-def rgb_to_yuv420(images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+def rgb_to_yuv420(
+    images: np.ndarray, out: tuple[np.ndarray, np.ndarray] | None = None
+) -> tuple[np.ndarray, np.ndarray]:
     """Host-side RGB -> planar YUV 4:2:0 with OpenCV (JAX
     `transform.py:177-197`); `ImageTransform.from_yuv420` decodes it.
 
     images: [T, H, W, 3] uint8 with even H, W. Returns (y [T, H, W] uint8,
-    uv [T, H/2, W/2, 2] uint8, Cb then Cr)."""
+    uv [T, H/2, W/2, 2] uint8, Cb then Cr), written into `out` where given
+    (two such arrays, e.g. views of page-locked host tensors)."""
     import cv2
 
     t, h, w = images.shape[:3]
     if h % 2 or w % 2:
         raise ValueError(f"YUV 4:2:0 transport needs even H, W, not {h}x{w}")
-    y = np.empty((t, h, w), np.uint8)
-    uv = np.empty((t, h // 2, w // 2, 2), np.uint8)
+    y, uv = out if out is not None else (np.empty((t, h, w), np.uint8), np.empty((t, h // 2, w // 2, 2), np.uint8))
     qh = h // 4  # I420 chroma plane rows in the stacked [H*3/2, W] layout
     for i in range(t):
         i420 = cv2.cvtColor(images[i], cv2.COLOR_RGB2YUV_I420)  # [H*3/2, W]

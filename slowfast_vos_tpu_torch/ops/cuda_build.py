@@ -9,11 +9,15 @@ the source, and are built at first use: never when a module is imported.
 forward by output size (7, 14), its backward by ("backward", output size),
 NMS by "nms". `chip_smoke.py` reads it to show that a path went through the
 kernels. Member threads (`parallel/mesh.py::on_members`) launch
-concurrently, so each count is taken under a lock.
+concurrently, so each count is taken under a lock. A wrapper called while
+its thread captures a CUDA graph (`recording_launches`) launches nothing:
+its launch is recorded into the graph and counted at each replay
+(`count_replay`).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -34,11 +38,33 @@ NVCC_FLAGS = [
 
 launches: collections.Counter = collections.Counter()
 _launches_lock = threading.Lock()
+_capture = threading.local()  # .recorded: the Counter of the graph this thread captures
 
 
 def count_launch(key) -> None:
+    recorded = getattr(_capture, "recorded", None)
+    if recorded is not None:
+        recorded[key] += 1
+        return
     with _launches_lock:
         launches[key] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's kernel launches go into the Counter
+    it yields (a graph's launches, as they are captured), not `launches`."""
+    _capture.recorded = recorded = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        _capture.recorded = None
+
+
+def count_replay(recorded: collections.Counter) -> None:
+    """Count the launches of one replay of a graph that recorded them."""
+    with _launches_lock:
+        launches.update(recorded)
 
 
 def nvcc_path() -> str:

@@ -58,11 +58,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import Sequence
 
 import torch
 
 from slowfast_vos_tpu_torch.ops import cuda_build
+from slowfast_vos_tpu_torch.ops.constants import device_constant
 
 ROI_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 
@@ -111,12 +113,12 @@ def sample_grid(
     validity `my, mx`."""
     t, n = rois.shape[:2]
     dev = rois.device
-    hs = torch.tensor([h for h, _ in level_hws], dtype=torch.float32, device=dev)
-    ws = torch.tensor([w for _, w in level_hws], dtype=torch.float32, device=dev)
-    plane = [h * w for h, w in level_hws]
-    bases = torch.tensor([0] + [t * p for p in plane][:-1], device=dev).cumsum(0)
-    planes = torch.tensor(plane, device=dev)
-    scales = torch.tensor(list(spatial_scales), dtype=torch.float32, device=dev)
+    hs = device_constant(tuple(h for h, _ in level_hws), torch.float32, dev)
+    ws = device_constant(tuple(w for _, w in level_hws), torch.float32, dev)
+    plane = tuple(h * w for h, w in level_hws)
+    bases = device_constant(tuple(itertools.accumulate([0] + [t * p for p in plane][:-1])), torch.int64, dev)
+    planes = device_constant(plane, torch.int64, dev)
+    scales = device_constant(tuple(spatial_scales), torch.float32, dev)
 
     boxes = rois.reshape(-1, 4).to(torch.float32)
     levels = fpn_level_assignment(boxes, num_levels=len(level_hws)).long()
@@ -132,7 +134,7 @@ def sample_grid(
     # Divide by device tensors, not Python numbers: PyTorch's CUDA division
     # by a host scalar multiplies by its reciprocal, an ulp away from the
     # IEEE quotient that torchvision's and this package's kernel compute.
-    out_t, sr_t = torch.tensor([output_size, sr], dtype=torch.float32, device=dev)
+    out_t, sr_t = device_constant((output_size, sr), torch.float32, dev)
     ys = y1[:, None] + steps[None, :] * (roi_h / out_t / sr_t)[:, None]  # [M, S]
     xs = x1[:, None] + steps[None, :] * (roi_w / out_t / sr_t)[:, None]
 

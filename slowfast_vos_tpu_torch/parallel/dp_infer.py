@@ -43,9 +43,11 @@ def resolve_device(device) -> torch.device:
 
 def replica(pipe: Pipeline, device: torch.device) -> Pipeline:
     """A `Pipeline` over a copy of `pipe.model` on `device`, with `pipe`'s
-    geometry and superchunk."""
+    geometry and superchunk; on a CUDA device it captures CUDA graphs of
+    its own unless `pipe` runs eagerly on the card."""
     model = copy.deepcopy(pipe.model).to(device)
-    return Pipeline(model, pipe.transform, superchunk=pipe.superchunk)
+    eager = pipe.device.type == "cuda" and pipe.graphs is None  # `pipe` was asked to run eagerly on the card
+    return Pipeline(model, pipe.transform, superchunk=pipe.superchunk, graphs=False if eager else None)
 
 
 class DeviceParallelInference:

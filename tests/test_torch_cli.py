@@ -16,6 +16,7 @@ import builtins
 import functools
 import json
 import os
+import shutil
 import socket
 
 import numpy as np
@@ -55,7 +56,8 @@ def tiny_build(slow, fast, original_hw, *, device, dtype=None, use_slow_fast=Tru
 
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
-    """The whole chain, once; each test reads its part."""
+    """The whole chain, once; each test reads its part. Its tree of
+    checkpoints is deleted at teardown."""
     work = tmp_path_factory.mktemp("cli")
     train_root, eval_root = str(work / "train17"), str(work / "eval16")
     make_synthetic_davis(train_root, num_sequences=1, frames=4, hw=TINY_HW, num_objects=2)
@@ -90,7 +92,8 @@ def chain(tmp_path_factory):
             [*common, "--mode", "all", "--epochs", "0", "--results-root", str(work / "osvos"),
              "--output-json", str(work / "osvos_all" / "all.json")]
         )
-    return out
+    yield out
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def test_pretrain_then_proposals(chain):

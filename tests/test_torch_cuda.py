@@ -1,8 +1,9 @@
 """The PyTorch port's checks that need the card: the RoIAlign kernel and
 its backward against their plain versions, the level assignment on the
 card against the CPU's, the YUV 4:2:0 decode on the card against the CPU's,
-the blocked NMS sweep on the card against the fixpoint, and the NMS kernel
-(K3) against the fixpoint, index for index.
+the blocked NMS sweep on the card against the fixpoint, the NMS kernel
+(K3) against the fixpoint, index for index, and the superchunk's CUDA
+graphs (`models/graphs.py`) against the eager path, bit for bit.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from torch_roi_cases import boundary_rois, clustered_batch, cuda_device, edge_case_batch  # noqa: F401 (fixture)
+from slowfast_vos_tpu_torch.models.pipeline import Pipeline, build_pipeline, frame_detections, init_weights
 from slowfast_vos_tpu_torch.models.transform import ImageTransform
 from slowfast_vos_tpu_torch.ops import nms as pnms
 from slowfast_vos_tpu_torch.ops import roi_align as pra
@@ -348,3 +350,107 @@ def test_nms_kernel_path_has_no_host_synchronize(cuda_device):
     before = pnms.launches["nms"]
     keep, order = pnms.nms_mask(boxes[:, :, :0], scores[:, :, :0], valid[:, :, :0], iou_threshold=0.7)
     assert keep.shape == (8, 5, 0) and pnms.launches["nms"] == before
+
+
+# The superchunk's CUDA graphs: (original size, resize bounds, dtype,
+# superchunk, frames): the `__graft_entry__` size in f32 and DAVIS 480p in
+# bf16, each over a first, a carry and a ragged carry chunk.
+GRAPH_SIZES = {
+    "small": ((120, 200), dict(min_size=128, max_size=256), torch.float32, 4, 10),
+    "full": ((480, 854), {}, torch.bfloat16, 8, 20),
+}
+
+
+def graph_and_eager(size, seed=0):
+    """A pipeline on the card with its graphs and an eager one over the same
+    model, seeded weights, and the size's clip."""
+    hw, bounds, dtype, sc, frames = GRAPH_SIZES[size]
+    pipe, model = build_pipeline(3, 3, hw, dtype=dtype, device="cuda", superchunk=sc, **bounds)
+    init_weights(model, seed)
+    eager = Pipeline(model, pipe.transform, superchunk=sc, graphs=False)
+    clip = np.random.default_rng(seed + 1).integers(0, 256, (frames, *hw, 3), dtype=np.uint8)
+    return pipe, eager, clip
+
+
+def assert_same_detections(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance_masks", [False, True])
+@pytest.mark.parametrize("transport", ["rgb", "yuv420"])
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_graph_path_equals_eager_bit_for_bit(cuda_device, size, transport, instance_masks):
+    """`infer_sequence` through the graphs (the first run: each key's first
+    chunk eager, then replays; the second run: replays only) against the
+    eager path on the same model: every output equal bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe, eager, clip = graph_and_eager(size)
+    want = eager.infer_sequence(clip, instance_masks=instance_masks, transport=transport)
+    assert any(d["valid"].any() for d in want)
+    for _ in range(2):
+        assert_same_detections(pipe.infer_sequence(clip, instance_masks=instance_masks, transport=transport), want)
+    assert pipe.graphs.captures == 2 and len(pipe.graphs.graphs) == 2  # first and carry
+
+
+@pytest.mark.cuda
+def test_graph_replays_in_place_weight_updates_and_recaptures_moved_ones(cuda_device):
+    """Other weights loaded in place after capture are what a replay
+    computes with (no new capture); a replaced parameter drops the graphs,
+    and the next run captures anew."""
+    pipe, eager, clip = graph_and_eager("small")
+    pipe.infer_sequence(clip)
+    assert pipe.graphs.captures == 2
+    _, other = build_pipeline(3, 3, (120, 200), min_size=128, max_size=256, dtype=torch.float32, device="cuda",
+                              superchunk=4)
+    pipe.model.load_state_dict(init_weights(other, 5).state_dict())
+    assert_same_detections(pipe.infer_sequence(clip), eager.infer_sequence(clip))
+    assert pipe.graphs.captures == 2
+    head = pipe.model.roi_heads.box_predictor.cls_score
+    head.weight = torch.nn.Parameter(head.weight.detach() * 2)
+    assert_same_detections(pipe.infer_sequence(clip), eager.infer_sequence(clip))
+    assert pipe.graphs.captures == 4
+    pipe.model.train()
+    with pytest.raises(RuntimeError, match="eval mode"):
+        pipe.infer_sequence(clip)
+    pipe.model.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["rgb", "yuv420"])
+def test_graph_path_has_no_host_synchronize(cuda_device, transport):
+    """After a first run has captured the graphs, the host's part of a run
+    (staging, uploads, copies into the static inputs, replays, clones)
+    under the sync debug mode "error"; only the final fetch waits."""
+    pipe, eager, clip = graph_and_eager("small")
+    want = eager.infer_sequence(clip, transport=transport)
+    pipe.infer_sequence(clip, transport=transport)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pipe.infer_chunks(clip, transport=transport)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert_same_detections(frame_detections(pending, clip.shape[0], clip.shape[2]), want)
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_their_kernel_launches(cuda_device):
+    """A replay adds the K1 (7, 14) and K3 launches its graph recorded at
+    capture: a warm run counts what the eager path counts, one launch of
+    each pool and two of K3 per superchunk; capture itself counts none."""
+    pipe, eager, clip = graph_and_eager("small")
+    chunks = -(-clip.shape[0] // pipe.superchunk)
+    counts = []
+    for p in (eager, pipe, pipe):
+        before = {k: pra.launches[k] for k in (7, 14, "nms")}
+        p.infer_sequence(clip)
+        counts.append({k: pra.launches[k] - v for k, v in before.items()})
+    assert counts == [{7: chunks, 14: chunks, "nms": 2 * chunks}] * 3
+    for captured in pipe.graphs.graphs.values():
+        assert captured.launches == {7: 1, 14: 1, "nms": 2}

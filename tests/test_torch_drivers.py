@@ -17,6 +17,7 @@ Also: the history and its evaluation carry the JAX driver's keys and
 epochs, the results tree has one PNG per frame, the checkpoints restore bit
 for bit, and `continue_training` resumes at the next epoch."""
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -67,7 +68,9 @@ def runs(roots, tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(Trainer, "make_draws", draws_from_jax)
         trainer, history = train_unsupervised(pipe, output_dir=port_out, state_dict=state_dict, **kw)
-    return {"jax": (jax_out, jax_history), "port": (port_out, history), "trainer": trainer, "pipe": pipe}
+    yield {"jax": (jax_out, jax_history), "port": (port_out, history), "trainer": trainer, "pipe": pipe}
+    for out in (jax_out, port_out):  # full-model checkpoints: none is kept after the module
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def test_step_losses_match_jax(runs):
@@ -147,13 +150,17 @@ def test_no_eval_saves_best_every_epoch(roots, tmp_path):
     follows ckpt_last; seeded random weights stand in for a state dict."""
     train_root, _ = roots
     pipe, _ = build_pipeline(1, 3, dtype=torch.float32, device="cpu", original_hw=(60, 100), min_size=64, max_size=128, cfg=TINY_CFG)
-    _, history = train_unsupervised(pipe, train_root=train_root, output_dir=str(tmp_path), epochs=1, max_windows_per_epoch=1)
-    assert [(h["epoch"], h["eval"]) for h in history] == [(0, None)]
-    best = load_checkpoint(str(tmp_path / "ckpt_best.pt"))
-    last = load_checkpoint(str(tmp_path / "ckpt_last.pt"))
-    assert best["meta"] == last["meta"] == {"epoch": 0}
-    for k, v in last["model"].items():
-        assert torch.equal(v, best["model"][k]), k
+    try:
+        _, history = train_unsupervised(pipe, train_root=train_root, output_dir=str(tmp_path), epochs=1,
+                                        max_windows_per_epoch=1)
+        assert [(h["epoch"], h["eval"]) for h in history] == [(0, None)]
+        best = load_checkpoint(str(tmp_path / "ckpt_best.pt"))
+        last = load_checkpoint(str(tmp_path / "ckpt_last.pt"))
+        assert best["meta"] == last["meta"] == {"epoch": 0}
+        for k, v in last["model"].items():
+            assert torch.equal(v, best["model"][k]), k
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_non_finite_loss_aborts(roots, tmp_path):

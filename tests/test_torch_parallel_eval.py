@@ -15,6 +15,7 @@ claims held against the port's own serial paths:
 * `scripts/torch_evaluate.py` through `main(argv)` on both ranks gives the
   serial J&F."""
 import json
+import shutil
 
 import pytest
 import torch
@@ -101,7 +102,8 @@ def run(tmp_path_factory):
     init_weights(model, 0)
     save_checkpoint(str(work / "weights.pt"), model)
     run_workers(WORKER, work, timeout=300)
-    return work, [torch.load(work / f"result{r}.pt", weights_only=False) for r in range(2)]
+    yield work, [torch.load(work / f"result{r}.pt", weights_only=False) for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)  # a full-model checkpoint: none is kept after the module
 
 
 def test_sharded_tree_is_byte_identical_to_serial(run):

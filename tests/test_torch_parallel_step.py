@@ -39,6 +39,8 @@ two ranks' single-window updates (SGD's first step is linear in the
 gradient) to 1e-6 of its max plus two float32 spacings of the parameter,
 and differs from either single-window update by more than 5% of its max, so
 it is not one window's."""
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,7 +178,9 @@ def dp_step_run(work, seed: int = SEED) -> dict:
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    return dp_step_run(tmp_path_factory.mktemp("dp_step"))
+    work = tmp_path_factory.mktemp("dp_step")
+    yield dp_step_run(work)
+    shutil.rmtree(work, ignore_errors=True)  # full-model state dicts: none is kept after the module
 
 
 def test_dp_loss_matches_jax(run):

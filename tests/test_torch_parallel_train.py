@@ -11,6 +11,7 @@ weights. Also: the history is identical on both ranks; only rank 0 writes
 checkpoints and logs; the epoch loss is each group's mean loss times its
 real windows, summed (2 * l0 + 1 * l1)."""
 import json
+import shutil
 
 import pytest
 import torch
@@ -64,7 +65,8 @@ def results(tmp_path_factory):
     make_synthetic_davis(str(work / "eval16"), num_sequences=2, frames=4, hw=TINY_HW, num_objects=1, year="2016",
                          subset="val", seed=7)
     run_workers(WORKER, work, timeout=240)
-    return [torch.load(work / f"result{r}.pt", weights_only=False) for r in range(2)]
+    yield [torch.load(work / f"result{r}.pt", weights_only=False) for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)  # full-model checkpoints: none is kept after the module
 
 
 def test_history_is_identical_on_both_ranks(results):

@@ -12,6 +12,7 @@ relative 1e-4, with layers 2-4 of the backbone, the FPN and the RPN
 training. The learning rate in force at update k is the JAX schedule's at
 k (relative 1e-6: JAX computes it in f32)."""
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -85,8 +86,10 @@ def runs(roots, tmp_path_factory):
         mp.setattr(Trainer, "make_draws", draws_from_jax)
         mp.setattr(Trainer, "step", recording_step)
         trainer, history = train_maskrcnn(pipe, output_dir=port_out, state_dict=state_dict, **kw)
-    return {"jax": (jax_out, jax_history, variables, jpipe), "port": (port_out, history), "trainer": trainer,
-            "state_dict": state_dict, "lrs": lrs}
+    yield {"jax": (jax_out, jax_history, variables, jpipe), "port": (port_out, history), "trainer": trainer,
+           "state_dict": state_dict, "lrs": lrs}
+    for out in (jax_out, port_out):  # full-model checkpoints: none is kept after the module
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def test_step_losses_and_history_match_jax(runs):

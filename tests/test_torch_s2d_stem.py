@@ -5,6 +5,7 @@ ways (and the warning when trained out-of-field taps are dropped),
 f32, the s2d model with a remapped conv1 against the standard model, and
 `load_init` / `migrate_state_dict` carrying a checkpoint of one stem into a
 model of the other."""
+import shutil
 import warnings
 
 import jax
@@ -182,26 +183,29 @@ def test_load_init_migrates_the_stem(direction, tmp_path):
     """A checkpoint of one stem into a model of the other: the stem is
     remapped and named in the report, every other tensor copied, and both
     models compute the same FPN levels."""
-    src_s2d = direction.startswith("s2d")
-    src = init_weights(SlowFastMaskRCNN(dtype=torch.float32, s2d_stem=False), seed=4)
-    if src_s2d:
-        s2d = SlowFastMaskRCNN(dtype=torch.float32, s2d_stem=True)
-        s2d.load_state_dict({**src.state_dict(), STEM_KEY: prf.stem_weight_to_s2d(src.state_dict()[STEM_KEY])})
-        src = s2d
-    path = str(tmp_path / "ckpt.pth")
-    torch.save(src.state_dict(), path)
-    dst = SlowFastMaskRCNN(dtype=torch.float32, s2d_stem=not src_s2d)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # a remapped kernel drops nothing
-        report = load_init(path, dst)
-    assert report["migrated"] == [STEM_KEY]
-    assert report["unused_source_keys"] == [] and report["untouched"] == []
-    remap = prf.stem_weight_from_s2d if src_s2d else prf.stem_weight_to_s2d
-    assert torch.equal(dst.state_dict()[STEM_KEY], remap(src.state_dict()[STEM_KEY]))
-    x = t(np.random.default_rng(9).normal(size=(1, 64, 64, 3)).astype(np.float32))
-    with torch.inference_mode():
-        for a, b in zip(dst.eval().backbone_feats(x), src.eval().backbone_feats(x)):
-            torch.testing.assert_close(a, b, atol=NET_ATOL, rtol=0)
+    try:
+        src_s2d = direction.startswith("s2d")
+        src = init_weights(SlowFastMaskRCNN(dtype=torch.float32, s2d_stem=False), seed=4)
+        if src_s2d:
+            s2d = SlowFastMaskRCNN(dtype=torch.float32, s2d_stem=True)
+            s2d.load_state_dict({**src.state_dict(), STEM_KEY: prf.stem_weight_to_s2d(src.state_dict()[STEM_KEY])})
+            src = s2d
+        path = str(tmp_path / "ckpt.pth")
+        torch.save(src.state_dict(), path)
+        dst = SlowFastMaskRCNN(dtype=torch.float32, s2d_stem=not src_s2d)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # a remapped kernel drops nothing
+            report = load_init(path, dst)
+        assert report["migrated"] == [STEM_KEY]
+        assert report["unused_source_keys"] == [] and report["untouched"] == []
+        remap = prf.stem_weight_from_s2d if src_s2d else prf.stem_weight_to_s2d
+        assert torch.equal(dst.state_dict()[STEM_KEY], remap(src.state_dict()[STEM_KEY]))
+        x = t(np.random.default_rng(9).normal(size=(1, 64, 64, 3)).astype(np.float32))
+        with torch.inference_mode():
+            for a, b in zip(dst.eval().backbone_feats(x), src.eval().backbone_feats(x)):
+                torch.testing.assert_close(a, b, atol=NET_ATOL, rtol=0)
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)  # a full-model file
 
 
 def test_load_init_same_stem_reports_no_migration_and_other_mismatches_raise(tmp_path):

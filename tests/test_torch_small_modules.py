@@ -14,6 +14,7 @@ TINY_CFG, superchunk 4, f32):
 import importlib.util
 import inspect
 import pathlib
+import shutil
 import time
 
 import jax
@@ -92,47 +93,53 @@ def assert_state_dicts_equal(got: dict, want: dict):
 
 def test_reference_pth_loads_with_no_unused_key(jax_side, tmp_path):
     """F1: a full SegmentationModel `.pth` through both loaders."""
-    sd = jax_side["weights_sd"]
-    full = {(k if k.startswith("slow_fast.") else f"maskrcnn_model.{k}"): v for k, v in sd.items()}
-    full["maskrcnn_model.backbone.body.bn1.num_batches_tracked"] = torch.tensor(0)
-    path = str(tmp_path / "model_slow_fast_1_3.pth")
-    torch.save(full, path)
+    try:
+        sd = jax_side["weights_sd"]
+        full = {(k if k.startswith("slow_fast.") else f"maskrcnn_model.{k}"): v for k, v in sd.items()}
+        full["maskrcnn_model.backbone.body.bn1.num_batches_tracked"] = torch.tensor(0)
+        path = str(tmp_path / "model_slow_fast_1_3.pth")
+        torch.save(full, path)
 
-    pipe, model = port_pipeline()
-    report = load_init(path, model)
-    counted = [k for k in sd if "num_batches_tracked" not in k]
-    assert report == {"converted": len(counted), "unused_source_keys": [], "untouched": [], "migrated": []}
-    assert_state_dicts_equal(model.state_dict(), sd)
-    want = jax_side["forward"](_load_init(path, jax_side["init"]))
-    assert_detections_close(port_forward(pipe, jax_side["inputs"]), want, TINY_HW[1])
+        pipe, model = port_pipeline()
+        report = load_init(path, model)
+        counted = [k for k in sd if "num_batches_tracked" not in k]
+        assert report == {"converted": len(counted), "unused_source_keys": [], "untouched": [], "migrated": []}
+        assert_state_dicts_equal(model.state_dict(), sd)
+        want = jax_side["forward"](_load_init(path, jax_side["init"]))
+        assert_detections_close(port_forward(pipe, jax_side["inputs"]), want, TINY_HW[1])
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)  # a full-model file
 
 
 def test_maskrcnn_checkpoint_leaves_slow_fast_at_init(jax_side, tmp_path):
     """F2: a bare Mask R-CNN file, as a `.pth` and as the port's own
     checkpoint, into a SlowFast model that starts from JAX's init."""
-    bare = {k: v for k, v in jax_side["weights_sd"].items() if not k.startswith("slow_fast.")}
-    pth = str(tmp_path / "maskrcnn_model.pth")
-    torch.save(bare, pth)
-    _, maskrcnn = port_pipeline(use_slow_fast=False)
-    maskrcnn.load_state_dict(bare, strict=True)
-    own = str(tmp_path / "maskrcnn_model.pt")
-    save_checkpoint(own, maskrcnn, meta={"epoch": 0})
+    try:
+        bare = {k: v for k, v in jax_side["weights_sd"].items() if not k.startswith("slow_fast.")}
+        pth = str(tmp_path / "maskrcnn_model.pth")
+        torch.save(bare, pth)
+        _, maskrcnn = port_pipeline(use_slow_fast=False)
+        maskrcnn.load_state_dict(bare, strict=True)
+        own = str(tmp_path / "maskrcnn_model.pt")
+        save_checkpoint(own, maskrcnn, meta={"epoch": 0})
 
-    start = jax_side["init_sd"]
-    sf = [k for k in start if k.startswith("slow_fast.")]
-    want = {**bare, **{k: start[k] for k in sf}}
-    for path in (pth, own):
-        pipe, model = port_pipeline()
-        model.load_state_dict(start, strict=True)
-        report = load_init(path, model)
-        assert report["unused_source_keys"] == []
-        assert sorted(report["untouched"]) == sorted(k for k in sf if "num_batches_tracked" not in k)
-        assert report["converted"] == len([k for k in bare if "num_batches_tracked" not in k])
-        assert_state_dicts_equal(model.state_dict(), want)
+        start = jax_side["init_sd"]
+        sf = [k for k in start if k.startswith("slow_fast.")]
+        want = {**bare, **{k: start[k] for k in sf}}
+        for path in (pth, own):
+            pipe, model = port_pipeline()
+            model.load_state_dict(start, strict=True)
+            report = load_init(path, model)
+            assert report["unused_source_keys"] == []
+            assert sorted(report["untouched"]) == sorted(k for k in sf if "num_batches_tracked" not in k)
+            assert report["converted"] == len([k for k in bare if "num_batches_tracked" not in k])
+            assert_state_dicts_equal(model.state_dict(), want)
 
-    loaded = _load_init(pth, jax_side["init"])
-    assert_state_dicts_equal(model.state_dict(), state_dict_from_flax(loaded))
-    assert_detections_close(port_forward(pipe, jax_side["inputs"]), jax_side["forward"](loaded), TINY_HW[1])
+        loaded = _load_init(pth, jax_side["init"])
+        assert_state_dicts_equal(model.state_dict(), state_dict_from_flax(loaded))
+        assert_detections_close(port_forward(pipe, jax_side["inputs"]), jax_side["forward"](loaded), TINY_HW[1])
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)  # full-model files
 
 
 def test_shape_mismatch_raises_and_loads_nothing(tmp_path):
