@@ -20,9 +20,11 @@ Phases, each fatal on failure:
 3. train   - `Trainer` on the same full-width model (default
              DetectionConfig: 2000 proposals, 512 box and 128 mask rois per
              frame), 8 steps on one seeded window of moving blobs from
-             `train_windows` (2 centre frames + halo), launch counts read
-             around those steps (forward and backward kernel at both pools
-             in every step), finite losses, trainable weights moved, frozen
+             `train_windows` (2 centre frames + halo) on the card's default
+             path (the first step eager and captured, then CUDA graph
+             replays), launch counts read around those steps (forward and
+             backward kernel at both pools and K3 in every step, replays
+             included), finite losses, trainable weights moved, frozen
              ones and FrozenBatchNorm buffers bit-identical, SlowFast running
              statistics moved, ms/step and peak device memory, then
              `infer_sequence` on the trained model; the first step's sampled
@@ -123,6 +125,20 @@ Phases, each fatal on failure:
              in turns and capture times; other weights loaded in place
              replayed with no new capture, a replaced parameter recaptured.
              Phases 2 and 7-10 run on the graph path already.
+12. train graphs - the training step's CUDA graphs against the eager path
+             at full width: unsupervised (accumulate 1), OSVOS (1 centre
+             frame, accumulate 2, freeze SF) and the Mask R-CNN fine-tune
+             (backbone trains, LambdaLR warm-up, two canvases), 8 calls
+             each from one saved state and seed, twice eagerly and once on
+             graphs: losses, gradients, weights after each update, SlowFast
+             running statistics, the samplers' draws and the generator
+             bit for bit where the eager runs agree, else within their
+             spread; inference graphs captured before training replaying
+             the trained weights; launches recorded per replay; the host's
+             part of a warm step under the sync debug mode "error" on both
+             paths; ms/step in turns, capture times and both memory peaks;
+             reserved memory over successive OSVOS trainers. Phases 3, 7
+             and 9 train on step graphs already.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -492,9 +508,12 @@ def train_path_rois(pipeline_mod, train_mod, data) -> dict:
 
 
 def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict, dict]:
-    """8 full-width train steps; returns (launch counts of those steps, the
-    first step's sampled rois by output size, its RPN NMS candidates)."""
+    """8 full-width train steps on the card's default path (the first eager
+    and captured, the others CUDA graph replays); returns (launch counts of
+    those steps, the first step's sampled rois by output size, its RPN NMS
+    candidates)."""
     pipe, model, trainer, batch, clip = full_width_trainer(pipeline_mod, train_mod, data)
+    check(trainer.graphs is not None, "train: the step does not run on CUDA graphs by default on the card")
     log(f"train: window of {batch['images'].shape[0]} frames 480x854, {int(batch['gt_valid'].sum())} gt boxes, "
         f"feat_valid {batch['feat_valid'].tolist()}")
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -520,7 +539,8 @@ def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict, dict]:
     for i, c in enumerate(per_step):
         check(all(v >= 1 for v in c.values()), f"step {i} bypassed a kernel: {c}")
     step_ms = statistics.median(times[1:])
-    log(f"train: {step_ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, synchronized), "
+    check(trainer.graphs.captures == 2, f"train: {trainer.graphs.captures} step graphs captured, 2 expected")
+    log(f"train: {step_ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, graph replays, synchronized), "
         f"peak device memory {peak / 2**30:.2f} GiB")
 
     after = model.state_dict()
@@ -1895,6 +1915,249 @@ def phase_graphs(ra, pipeline_mod) -> dict:
     return out
 
 
+# Phase 12: the training step's CUDA graphs against the eager path.
+PRETRAIN_SECOND_HW = (600, 800)  # a second canvas (832x1088 against 768x1344), as the pretrain sampler pairs sizes
+TRAIN_GROUPS = ("losses", "grads", "weights", "statistics", "draws", "generator")
+TRAIN_TURNS = 10
+OSVOS_SEQUENCES = 3
+
+
+def train_graph_cells(pipeline_mod, data) -> list:
+    """Phase 12's set-ups at full width (bf16, seeded weights, default
+    DetectionConfig): (name, pipelines over one model, Trainer arguments,
+    [(pipeline index, batch)] of TRAIN_STEPS calls). Unsupervised (phase
+    3's: 3-3, 2 centre frames, accumulate 1), OSVOS (3-3, 1 centre frame,
+    accumulate 2, freeze SF: the backbone trains, SlowFast is frozen) and
+    the Mask R-CNN fine-tune (no SlowFast, the backbone's layers 2-4 train,
+    the warm-up schedule through LambdaLR, two canvases in turns through
+    `use_pipeline`)."""
+    from slowfast_vos_tpu_torch.models.transform import ImageTransform
+    from slowfast_vos_tpu_torch.train.osvos import _freeze_flags
+    from slowfast_vos_tpu_torch.train.pretrain import warmup_step_lr
+
+    def windows(hw, fast, n_center, seed=7):
+        images, ids = data.draw_sequence(np.random.default_rng(seed), 8, *hw, 2)
+        return list(data.train_windows(data.sequence_arrays(images, ids, 8), fast=fast, n_center=n_center))
+
+    def calls(pick):
+        return [pick(k) for k in range(TRAIN_STEPS)]
+
+    pipe, model = pipeline_mod.build_pipeline(3, 3, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=SC)
+    pipeline_mod.init_weights(model, seed=0)
+    two, one = windows(DRIVER_HW, 3, 2), windows(DRIVER_HW, 3, 1)
+    pre, pre_model = pipeline_mod.build_pipeline(1, 1, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=SC,
+                                                 use_slow_fast=False)
+    pipeline_mod.init_weights(pre_model, seed=0)
+    t = pre.transform
+    second = pipeline_mod.Pipeline(pre_model, ImageTransform(PRETRAIN_SECOND_HW, min_size=t.min_size, max_size=t.max_size,
+                                                             divisor=t.divisor), superchunk=SC)
+    canvases = (windows(DRIVER_HW, 1, 2), windows(PRETRAIN_SECOND_HW, 1, 2, seed=8))
+    return [
+        ("unsupervised", [pipe], dict(seed=0), calls(lambda k: (0, two[k % len(two)]))),
+        ("OSVOS SF", [pipe], dict(seed=0, n_center=1, accumulate=2, **_freeze_flags("SF")),
+         calls(lambda k: (0, one[k % len(one)]))),
+        ("pretrain", [pre, second], dict(seed=0, lr=warmup_step_lr(1e-3, 4, warmup_iters=3), weight_decay=5e-4,
+                                         train_backbone=True, trainable_backbone_layers=3),
+         calls(lambda k: (k % 2, canvases[k % 2][k // 2 % len(canvases[k % 2])]))),
+    ]
+
+
+def train_record(train_mod, pipes, kw, calls, start, graphs: bool) -> tuple[dict, object]:
+    """The calls of a fresh `Trainer` (graphs or eager) from the model state
+    `start`, recording after each call, as copies on the card: its losses,
+    the trainable gradients before the update, the trainable weights after
+    it, SlowFast's running statistics, the samplers' draws (kept as
+    `make_draws` returns them: in a replay, the graph's own) and the
+    generator's state. Returns (the record, the trainer)."""
+    from slowfast_vos_tpu_torch.parallel.sharded import running_buffers
+
+    class KeptDraws(train_mod.Trainer):
+        def make_draws(self, num_gt):
+            draws = super().make_draws(num_gt)
+            if torch.cuda.is_current_stream_capturing():
+                self.graph_draws[id(self.pipe)] = draws  # what each replay of that graph draws into
+            else:
+                self.eager_draws = draws
+            return draws
+
+    model = pipes[0].model
+    model.load_state_dict(start)
+    tr = KeptDraws(pipes[0], graphs=graphs, **kw)
+    tr.graph_draws = {}
+    check((tr.graphs is not None) == graphs, "graphs: the trainer's path is not the one asked for")
+    params, stats = list(tr.params.values()), running_buffers(model)
+    rec = {g: [] for g in TRAIN_GROUPS}
+    for i, batch in calls:
+        tr.use_pipeline(pipes[i])
+        captures = tr.graphs.captures if graphs else 0
+        metrics = tr.accumulate_gradient(batch)
+        replayed = graphs and tr.graphs.captures == captures
+        draws = tr.graph_draws[id(pipes[i])] if replayed else tr.eager_draws
+        rec["grads"].append([p.grad.clone() for p in params])
+        if tr.calls % tr.accumulate == 0:
+            tr.apply_update()
+        rec["losses"].append([metrics[k] for k in sorted(metrics)])
+        rec["weights"].append([p.detach().clone() for p in params])
+        rec["statistics"].append([b.clone() for b in stats])
+        rec["draws"].append([draws[k].clone() for k in sorted(draws)])
+        rec["generator"].append([tr.generator.get_state()])
+    torch.cuda.synchronize()
+    return rec, tr
+
+
+def record_diff(a: dict, b: dict) -> dict:
+    """Per group of two records: (bit for bit equal at every call, the
+    largest absolute difference at each call)."""
+    out = {}
+    for g in TRAIN_GROUPS:
+        equal = all(torch.equal(x, y) for xs, ys in zip(a[g], b[g]) for x, y in zip(xs, ys))
+        diffs = [max([float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys) if x.numel()], default=0.0)
+                 for xs, ys in zip(a[g], b[g])]
+        out[g] = (equal, diffs)
+    return out
+
+
+def phase_train_graphs(ra, pipeline_mod, train_mod, data) -> dict:
+    """The training step's CUDA graphs (`train/graphs.py`) at full width.
+    Per set-up of `train_graph_cells`, from one saved state and seed: two
+    eager runs and one graph run of TRAIN_STEPS calls, held call by call in
+    every group of TRAIN_GROUPS: the graph run equal to the eager one bit
+    for bit where the two eager runs are equal, and otherwise within twice
+    their largest difference up to that call. In the unsupervised set-up:
+    inference graphs captured before the graph run replay on the trained
+    weights after it, equal to an eager pipeline; each gradient graph
+    records one launch of K1 and K5 at both pools and one of K3, the update
+    graph none, and a warm graph step counts those; the host's part of a
+    warm step on either path under the sync debug mode "error"; ms/step of
+    both paths in turns; capture seconds; peak device memory of each path.
+    Then OSVOS trainers one after another on one pipeline (a sequence
+    each): the reserved memory must not grow with them."""
+    out = {}
+    cells = train_graph_cells(pipeline_mod, data)
+    clip = training_window(data, DRIVER_HW, 8, 8, index=0)[1]
+    for name, pipes, kw, calls in cells:
+        model = pipes[0].model
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        infer_check = name == "unsupervised"
+        recs = {}
+        for run, graphs in (("eager", False), ("eager again", False), ("graphs", True)):
+            if infer_check and graphs:
+                model.load_state_dict(start)
+                before = pipes[0].infer_sequence(clip)  # captures the inference graphs on the starting weights
+                inference_captures = pipes[0].graphs.captures
+            recs[run], tr = train_record(train_mod, pipes, kw, calls, start, graphs)
+        spread, against = record_diff(recs["eager"], recs["eager again"]), record_diff(recs["graphs"], recs["eager"])
+        cell = {"eager_bitwise": {}, "graphs_bitwise": {}, "eager_spread": {}, "graphs_vs_eager": {}}
+        for g in TRAIN_GROUPS:
+            (e_eq, e_d), (g_eq, g_d) = spread[g], against[g]
+            cell["eager_bitwise"][g], cell["graphs_bitwise"][g] = e_eq, g_eq
+            cell["eager_spread"][g], cell["graphs_vs_eager"][g] = max(e_d), max(g_d)
+            log(f"train graphs: {name}: {g}: two eager runs equal bit for bit {e_eq} (largest difference "
+                f"{max(e_d):.3e}); graphs against eager equal {g_eq} (largest {max(g_d):.3e})")
+            # Where the eager path does not repeat itself, the graph path is
+            # held within twice the eager runs' largest difference so far.
+            check(g_eq if e_eq else all(gd <= 2 * max(e_d[: k + 1]) for k, gd in enumerate(g_d)),
+                  f"train graphs: {name}: {g}: the graph path differs from the eager path beyond its own spread")
+        runner = tr.graphs
+        check(len(runner.graphs) == len({i for i, _ in calls}) and runner.update is not None,
+              f"train graphs: {name}: {len(runner.graphs)} gradient graphs")
+        cell["capture_s"] = {**{f"gradient {dict(k[1])['images'][0]}": g.capture_s for k, g in runner.graphs.items()},
+                             "update": runner.update.capture_s}
+        for g in runner.graphs.values():
+            check(g.launches == {k: 1 for k in LAUNCH_KEYS}, f"train graphs: {name}: a gradient graph recorded {g.launches}")
+        check(runner.update.launches == {}, f"train graphs: {name}: the update graph recorded {runner.update.launches}")
+        log(f"train graphs: {name}: {runner.captures} captures, each gradient graph recording one launch of each "
+            f"kernel; capture s " + ", ".join(f"{k} {v:.3f}" for k, v in cell["capture_s"].items()))
+        del recs, tr, runner
+        if infer_check:
+            got = pipes[0].infer_sequence(clip)
+            eager = pipeline_mod.Pipeline(model, pipes[0].transform, superchunk=SC, graphs=False)
+            check(same_detections(got, eager.infer_sequence(clip)) and pipes[0].graphs.captures == inference_captures,
+                  "train graphs: inference graphs did not replay the trained weights")
+            log(f"train graphs: inference graphs captured before training replayed the trained weights, equal to an "
+                f"eager pipeline bit for bit, no new capture; detections moved with training: "
+                f"{not same_detections(got, before)}")
+            cell.update(train_graph_timings(ra, train_mod, pipes[0], kw, calls))
+        out[name] = cell
+    out["osvos_reserved_gib"] = osvos_memory(train_mod, cells[1])
+    return out
+
+
+def train_graph_timings(ra, train_mod, pipe, kw, calls) -> dict:
+    """Phase 12's launches, synchronizes, ms/step and memory on the
+    unsupervised set-up (see `phase_train_graphs`)."""
+    batch = calls[1][1]
+    out = {"peak_gib": {}, "peak_reserved_gib": {}}
+
+    def peaks(name, tr):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            tr.step(batch)
+        torch.cuda.synchronize()
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+        out["peak_reserved_gib"][name] = torch.cuda.max_memory_reserved() / 2**30
+
+    peaks("eager", train_mod.Trainer(pipe, graphs=False, **kw))
+    tr = train_mod.Trainer(pipe, graphs=True, **kw)
+    peaks("graphs, first steps (captures)", tr)
+    peaks("graphs, warm", tr)
+    log("train graphs: peak device memory allocated / reserved over 3 steps: " + ", ".join(
+        f"{k} {out['peak_gib'][k]:.2f} / {out['peak_reserved_gib'][k]:.2f} GiB" for k in out["peak_gib"]))
+    runner = tr.graphs
+
+    def eager_step():
+        tr.graphs = None
+        try:
+            tr.step(batch)
+        finally:
+            tr.graphs = runner
+
+    ra.launches.clear()
+    tr.step(batch)
+    counts = {k: ra.launches[k] for k in LAUNCH_KEYS}
+    check(counts == {k: 1 for k in LAUNCH_KEYS}, f"train graphs: a warm graph step launched {counts}")
+    out["warm_step_launches"] = {str(k): v for k, v in counts.items()}
+    for name, fn in (("eager", eager_step), ("graphs", lambda: tr.step(batch))):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    log("train graphs: a warm graph step launched one of each kernel; the host's part of a warm step under sync "
+        "debug \"error\" on both paths: no synchronize")
+    timed = turns({"eager": eager_step, "graphs": lambda: tr.step(batch)}, TRAIN_TURNS)
+    out["step_ms_runs"] = {k: [t * 1e3 for t in v] for k, v in timed.items()}
+    out["step_ms"] = {k: statistics.median(v) for k, v in out["step_ms_runs"].items()}
+    log(f"train graphs: in turns, ms/step " + "; ".join(
+        f"{k} {out['step_ms'][k]:.2f} (runs {', '.join(f'{t:.2f}' for t in v)})" for k, v in out["step_ms_runs"].items()))
+    return out
+
+
+def osvos_memory(train_mod, cell) -> list:
+    """Reserved device memory after each of OSVOS_SEQUENCES fine-tunes on
+    graphs, one `Trainer` each (as `train_osvos_sequence` builds one per
+    sequence), each dropped after its steps, the cache emptied."""
+    _, pipes, kw, calls = cell
+    start = {k: v.detach().clone() for k, v in pipes[0].model.state_dict().items()}
+    reserved = []
+    for _ in range(OSVOS_SEQUENCES):
+        pipes[0].model.load_state_dict(start)
+        tr = train_mod.Trainer(pipes[0], graphs=True, **kw)
+        for _, batch in calls[:4]:
+            tr.step(batch)
+        torch.cuda.synchronize()
+        del tr
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved() / 2**30)
+    log("train graphs: reserved memory after each OSVOS sequence's trainer was dropped: "
+        + ", ".join(f"{r:.2f}" for r in reserved) + " GiB")
+    check(reserved[-1] <= reserved[0] + 0.25, "train graphs: reserved memory grows with OSVOS sequences")
+    return reserved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -1948,6 +2211,9 @@ def main() -> int:
     t0 = time.perf_counter()
     graphs = phase_graphs(ra, pipeline_mod)
     log(f"graphs: phase 11 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_graphs = phase_train_graphs(ra, pipeline_mod, train_mod, data)
+    log(f"train graphs: phase 12 in {time.perf_counter() - t0:.1f} s")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
         key = "nms" if r["name"] == "nms" else ("backward", size) if "backward" in r["name"] else size
@@ -1955,6 +2221,7 @@ def main() -> int:
         r["cli_launches"] = {name: c[key] for name, c in cli["counts"].items()}
         r["parallel_launches"] = {name: c[key] if key in c else c[str(key)] for name, c in parallel["counts"].items()}
         r["transport_stem_launches"] = {name: c[key] for name, c in transport_stem["counts"].items()}
+        r["train_graph_step_launches"] = train_graphs["unsupervised"]["warm_step_launches"][str(key)]
 
     log(json.dumps({"train_step": {k: train[k] for k in ("step_ms", "step_times_ms", "peak_gib")}}))
     log(json.dumps({"drivers": {k: v for k, v in drivers.items() if k != "counts"}}))
@@ -1962,6 +2229,7 @@ def main() -> int:
     log(json.dumps({"parallel": {k: v for k, v in parallel.items() if k != "counts"}}))
     log(json.dumps({"transport_stem": {k: v for k, v in transport_stem.items() if k != "counts"}}))
     log(json.dumps({"graphs": graphs}))
+    log(json.dumps({"train_graphs": train_graphs}))
     log(json.dumps({"kernels": records}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -30,6 +30,9 @@ synchronize.
 `graphs`: both numbers are taken on the pipeline's default path on the card,
 one CUDA graph replay per superchunk (`models/graphs.py`); the record says
 which path ran, so no eager number is read as a graph one.
+`--train` runs on the trainer's default path on the card too, one CUDA
+graph replay per half of a step (`train/graphs.py`), and its record says
+so in `graphs`.
 `device_mfu`: the model's analytic FLOPs per frame times `device_median`
 over the H100 SXM's dense bf16 tensor-core peak.
 
@@ -185,6 +188,7 @@ def bench_train(slow: int, fast: int, device_name: str, steps: int = 8) -> dict:
         "unit": "frames/s",
         "step_ms": round(dt * 1e3, 2),
         "config": f"{slow}-{fast}",
+        "graphs": trainer.graphs is not None,
         "card": device_name,
     }
     print(json.dumps(record), flush=True)

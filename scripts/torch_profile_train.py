@@ -5,13 +5,18 @@
 
 Builds chip_smoke.py's training set-up (DAVIS 480x854, SlowFast 3-3, bf16,
 default DetectionConfig, seeded random weights, one seeded window of moving
-blobs), takes two warm-up steps, then
+blobs) and one `Trainer` on the card's default path, CUDA graphs
+(`train/graphs.py`), takes two warm-up steps on each path, then
 
-1. runs steps with every stage of the loss, the backward and the optimizer
-   step wrapped in a synchronize at both ends, timed on the host clock
-   (median over the runs);
-2. runs one more step, unwrapped, under `torch.profiler`: the device's busy
-   and idle share of the step and the kernels with the most device time.
+1. runs eager steps with every stage of the loss, the backward and the
+   optimizer step wrapped in a synchronize at both ends, timed on the host
+   clock (median over the runs): a graph replay calls no Python, so only
+   the eager path splits by stage;
+2. runs one more step of each path, unwrapped, under `torch.profiler`: its
+   wall, the device's busy and idle share of it and the kernels with the
+   most device time;
+3. times whole steps of both paths in turns (eager, graphs, graphs, eager,
+   ...), synchronized around each step: the median of each.
 
 Prints the card's name and power limit and one JSON line. Needs CUDA.
 """
@@ -40,7 +45,7 @@ from slowfast_vos_tpu_torch.train import train_step as train_step_mod  # noqa: E
 STAGE_FUNCS = ("filter_proposals", "rpn_loss", "select_training_samples", "multiscale_roi_align",
                "fastrcnn_loss", "project_masks_on_boxes", "maskrcnn_loss")
 MODEL_METHODS = ("backbone_feats", "rpn_predict", "enhance", "box_predict", "mask_predict")
-RUNS, TOP = 3, 20
+RUNS, TOP, TURNS = 3, 20, 10
 
 
 def training_window():
@@ -50,7 +55,8 @@ def training_window():
 
 
 def one_step(trainer, batch, totals=None):
-    """`Trainer.step` with its loss, backward and optimizer step apart."""
+    """An eager `Trainer.step` with its loss, backward and optimizer step
+    apart."""
     clock = timed if totals is not None else (lambda name, fn, _: fn)
     draws = trainer.make_draws(int(batch["boxes"].shape[1]))
     trainer.model.train()
@@ -59,8 +65,7 @@ def one_step(trainer, batch, totals=None):
         clock("backward", total.backward, totals)()
     finally:
         trainer.model.eval()
-    clock("optimizer", trainer.optimizer.step, totals)()
-    trainer.optimizer.zero_grad(set_to_none=True)
+    clock("optimizer", trainer.device_update, totals)()
 
 
 def stage_times(trainer, batch, runs: int) -> dict:
@@ -103,23 +108,49 @@ def main() -> int:
     pipe, model = pipeline_mod.build_pipeline(3, 3, (480, 854), dtype=torch.bfloat16, device="cuda", superchunk=8)
     pipeline_mod.init_weights(model, seed=0)
     trainer = Trainer(pipe, seed=0)
+    runner = trainer.graphs
+
+    def eager_step():
+        trainer.graphs = None  # the eager path of the same trainer
+        try:
+            trainer.step(batch)
+        finally:
+            trainer.graphs = runner
+
+    paths = {"eager": eager_step, "graphs": lambda: trainer.step(batch)}
     batch = training_window()
-    for _ in range(2):  # warm-up: kernel build, cuDNN algorithm choice
-        one_step(trainer, batch)
+    for _ in range(2):  # warm-up: kernel build, cuDNN algorithm choice, the captures
+        for step in paths.values():
+            step()
     stages = stage_times(trainer, batch, RUNS)
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"stage {k:24s} {v * 1e3:9.2f} ms  {v / stages['total']:6.1%}")
-    prof = device_profile(lambda: one_step(trainer, batch), TOP)
-    print(f"device busy {prof.get('busy_share')}")
-    for k in prof.get("top_kernels", []):
-        print(f"kernel {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
+    profiles = {}
+    for name, step in paths.items():
+        profiles[name] = prof = device_profile(step, TOP)
+        print(f"{name}: wall {prof.get('wall_ms')} ms, device busy {prof.get('device_busy_ms')} ms, "
+              f"busy share {prof.get('busy_share')}, {prof.get('kernel_launches')} device kernels")
+        for k in prof.get("top_kernels", []):
+            print(f"  kernel {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
+    turns = {name: [] for name in paths}
+    for i in range(TURNS):
+        for name in (paths if i % 2 == 0 else reversed(paths)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths[name]()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    step_ms = {name: float(np.median(v)) for name, v in turns.items()}
+    print("whole steps in turns, median ms: " + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"device": torch.cuda.get_device_name(0), "stages_ms": {k: v * 1e3 for k, v in stages.items()},
-                      "profile": prof}))
+                      "profiles": profiles, "step_ms": step_ms, "step_ms_runs": turns,
+                      "capture_s": {"gradient": [g.capture_s for g in runner.graphs.values()],
+                                    "update": runner.update.capture_s}}))
     return 0
 
 

@@ -82,8 +82,56 @@ class CapturedSuperchunk:
     capture_s: float
 
 
-def _spec(x: torch.Tensor) -> tuple:
+def tensor_spec(x: torch.Tensor) -> tuple:
+    """What of a tensor fixes a graph that reads it: shape, dtype, strides."""
     return tuple(x.shape), x.dtype, x.stride()
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def capture(device: torch.device, pool, run, generators=()) -> tuple:
+    """Run `run()` eagerly on the device's capture stream, empty the
+    allocator's cache, then capture the same call into a CUDA graph there
+    (`capture_error_mode="thread_local"`), all under the stream's lock.
+    Kernel launches of the capture, from this thread or onto the capture
+    stream from any other (autograd's device thread), are recorded, not
+    counted. `generators` (device generators that `run` draws from) are
+    registered with the graph, so a replay draws where the generator stands
+    and advances it as the eager call does.
+
+    Returns (the eager call's result, usable on the caller's stream; the
+    graph; the captured call's outputs, in `pool`; kernel launches per
+    replay; the capture's seconds)."""
+    (stream, stream_lock), caller = capture_stream(device), torch.cuda.current_stream(device)
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    with stream_lock:
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            result = run()
+            for t in _tensors(result):  # used on the caller's stream, freed there
+                t.record_stream(caller)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with cuda_build.recording_launches(stream.cuda_stream) as launches:
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    outputs = run()
+                finally:
+                    graph.capture_end()
+            capture_s = time.perf_counter() - t0
+        caller.wait_stream(stream)
+    return result, graph, outputs, dict(launches), capture_s
 
 
 def superchunk_key(images, feat_valid, carry, instance_masks: bool) -> tuple:
@@ -91,9 +139,9 @@ def superchunk_key(images, feat_valid, carry, instance_masks: bool) -> tuple:
     planes = images if isinstance(images, tuple) else (images,)
     return (
         isinstance(images, tuple),
-        tuple(_spec(p) for p in planes),
-        _spec(feat_valid),
-        None if carry is None else tuple(_spec(c) for c in carry),
+        tuple(tensor_spec(p) for p in planes),
+        tensor_spec(feat_valid),
+        None if carry is None else tuple(tensor_spec(c) for c in carry),
         instance_masks,
         torch.backends.cudnn.allow_tf32,
         torch.backends.cuda.matmul.allow_tf32,
@@ -151,7 +199,6 @@ class SuperchunkGraphs:
     def _capture(self, key, sources, instance_masks):
         """The key's first superchunk: run eagerly on the capture stream,
         then captured into a graph there. Returns the eager run's outputs."""
-        device = self.pipe.device
         yuv, planes = key[0], len(key[1])
         carried = key[3] is not None
         if self._pool is None:
@@ -165,24 +212,7 @@ class SuperchunkGraphs:
             carry = inputs[planes + 1:] if carried else None
             return self.pipe._superchunk(images, inputs[planes], carry, instance_masks)
 
-        (stream, stream_lock), caller = capture_stream(device), torch.cuda.current_stream(device)
-        graph = torch.cuda.CUDAGraph()
-        with stream_lock:
-            stream.wait_stream(caller)
-            with torch.cuda.stream(stream):
-                result = superchunk()
-                for t in (*result[0], *result[1]):  # used on the caller's stream, freed there
-                    t.record_stream(caller)
-                torch.cuda.empty_cache()
-                t0 = time.perf_counter()
-                with cuda_build.recording_launches() as launches:
-                    graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-                    try:
-                        outputs = superchunk()
-                    finally:
-                        graph.capture_end()
-                capture_s = time.perf_counter() - t0
-            caller.wait_stream(stream)
-        self.graphs[key] = CapturedSuperchunk(graph, inputs, outputs, dict(launches), capture_s)
+        result, graph, outputs, launches, capture_s = capture(self.pipe.device, self._pool, superchunk)
+        self.graphs[key] = CapturedSuperchunk(graph, inputs, outputs, launches, capture_s)
         self.captures += 1
         return result

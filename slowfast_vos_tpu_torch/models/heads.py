@@ -20,6 +20,7 @@ from slowfast_vos_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear
 from slowfast_vos_tpu_torch.models.matching import BELOW_LOW, match_to_gt, sample_balanced
 from slowfast_vos_tpu_torch.models.rpn import smooth_l1
 from slowfast_vos_tpu_torch.ops.boxes import box_iou, clip_boxes, decode_boxes, encode_boxes, remove_small_boxes_mask
+from slowfast_vos_tpu_torch.ops.constants import device_constant
 from slowfast_vos_tpu_torch.ops.nms import batched_nms_mask, sort_desc, top_k_after_nms
 from slowfast_vos_tpu_torch.ops.roi_align import interp_matrix_1d
 
@@ -194,7 +195,7 @@ def project_masks_on_boxes(mask_stack: torch.Tensor, gt_idx: torch.Tensor, boxes
     r = boxes.shape[-2]
     b = boxes.reshape(-1, 4).to(torch.float32)
     x1, y1, x2, y2 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
-    out_t = torch.tensor(float(out_size), device=boxes.device)
+    out_t = device_constant(float(out_size), torch.float32, boxes.device)
     a_y = interp_matrix_1d(y1, (y2 - y1).clamp(min=1.0) / out_t, h, out_size, 2)  # [M, out, H]
     a_x = interp_matrix_1d(x1, (x2 - x1).clamp(min=1.0) / out_t, w, out_size, 2)  # [M, out, W]
     stack = mask_stack.reshape(-1, *mask_stack.shape[-3:]).to(torch.float32)  # [L, G, H, W]

@@ -10,9 +10,10 @@ forward by output size (7, 14), its backward by ("backward", output size),
 NMS by "nms". `chip_smoke.py` reads it to show that a path went through the
 kernels. Member threads (`parallel/mesh.py::on_members`) launch
 concurrently, so each count is taken under a lock. A wrapper called while
-its thread captures a CUDA graph (`recording_launches`) launches nothing:
-its launch is recorded into the graph and counted at each replay
-(`count_replay`).
+its thread captures a CUDA graph (`recording_launches`), or that launches
+onto a stream being captured from another thread (autograd's device thread
+runs a captured backward), launches nothing: its launch is recorded into
+the graph and counted at each replay (`count_replay`).
 """
 from __future__ import annotations
 
@@ -39,26 +40,34 @@ NVCC_FLAGS = [
 launches: collections.Counter = collections.Counter()
 _launches_lock = threading.Lock()
 _capture = threading.local()  # .recorded: the Counter of the graph this thread captures
+_captured_streams: dict = {}  # CUDA stream handle -> the Counter of the graph captured on it
 
 
-def count_launch(key) -> None:
-    recorded = getattr(_capture, "recorded", None)
-    if recorded is not None:
-        recorded[key] += 1
-        return
+def count_launch(key, stream: int | None = None) -> None:
+    """Count one launch of `key`, made onto the CUDA stream handle `stream`."""
     with _launches_lock:
-        launches[key] += 1
+        recorded = getattr(_capture, "recorded", None)
+        if recorded is None and stream is not None:
+            recorded = _captured_streams.get(stream)
+        (launches if recorded is None else recorded)[key] += 1
 
 
 @contextlib.contextmanager
-def recording_launches():
-    """Within the block, this thread's kernel launches go into the Counter
-    it yields (a graph's launches, as they are captured), not `launches`."""
-    _capture.recorded = recorded = collections.Counter()
+def recording_launches(stream: int | None = None):
+    """Within the block, this thread's kernel launches, and any thread's
+    launches onto the CUDA stream handle `stream`, go into the Counter it
+    yields (a graph's launches, as they are captured), not `launches`."""
+    recorded = collections.Counter()
+    with _launches_lock:
+        _capture.recorded = recorded
+        if stream is not None:
+            _captured_streams[stream] = recorded
     try:
         yield recorded
     finally:
-        _capture.recorded = None
+        with _launches_lock:
+            _capture.recorded = None
+            _captured_streams.pop(stream, None)
 
 
 def count_replay(recorded: collections.Counter) -> None:

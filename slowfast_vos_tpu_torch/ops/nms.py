@@ -298,7 +298,7 @@ def nms_cuda(boxes: torch.Tensor, eff: torch.Tensor, order: torch.Tensor, iou_th
                                ptrs[3] + start * n, stream)
             if rc != 0:
                 raise RuntimeError(f"NMS kernel launch failed: {lib.sfvos_cuda_error_string(rc).decode()}")
-            cuda_build.count_launch("nms")
+            cuda_build.count_launch("nms", stream)
     return keep
 
 

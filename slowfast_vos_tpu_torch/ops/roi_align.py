@@ -227,7 +227,7 @@ def interp_matrix_1d(starts: torch.Tensor, bins: torch.Tensor, extent: int, out_
     n = starts.shape[0]
     s = out_size * sr
     steps = torch.arange(s, dtype=torch.float32, device=dev) + 0.5
-    coords = starts[:, None] + steps[None, :] * (bins / torch.tensor(float(sr), device=dev))[:, None]  # [N, S]
+    coords = starts[:, None] + steps[None, :] * (bins / device_constant(float(sr), torch.float32, dev))[:, None]  # [N, S]
     in_range = (coords >= -1.0) & (coords <= extent)
     c = coords.clamp(0.0, extent - 1.0)
     c0 = torch.floor(c)
@@ -264,7 +264,7 @@ def multiscale_roi_align_backward_plain(
     levels = fpn_level_assignment(boxes, num_levels=len(level_hws))
     frame = torch.arange(t, device=dev).repeat_interleave(n)
     gf = g.reshape(t * n, output_size, output_size, c).to(torch.float32)
-    out_t = torch.tensor(float(output_size), device=dev)
+    out_t = device_constant(float(output_size), torch.float32, dev)
     grads = []
     for li, ((h, w), scale) in enumerate(zip(level_hws, spatial_scales)):
         grad = torch.zeros((t, h, w, c), dtype=torch.float32, device=dev)
@@ -378,7 +378,7 @@ def launch_kernel(
         )
     if rc != 0:
         raise RuntimeError(f"roi_align kernel launch failed: {lib.sfvos_cuda_error_string(rc).decode()}")
-    _count_launch(output_size)
+    _count_launch(output_size, stream)
     return out
 
 
@@ -460,7 +460,7 @@ def launch_backward(
         )
     if rc != 0:
         raise RuntimeError(f"roi_align backward kernel launch failed: {lib.sfvos_cuda_error_string(rc).decode()}")
-    _count_launch(("backward", output_size))
+    _count_launch(("backward", output_size), stream)
     return grads
 
 

@@ -17,6 +17,10 @@ training window with its own sampler draws, and after the backward
   updates `m * old + (1 - m) * batch_r` is the JAX package's pmean-ed
   `new_bn`.
 
+On the card the step's two halves are CUDA graph replays
+(`train/graphs.py`), and the all-reduce of the gradients runs between them:
+the gradients lie at fixed addresses, which the update graph reads.
+
 The reductions sum and then divide on every rank alike, so after a step
 every rank holds bit-identical parameters. A process without a process
 group trains serially: the step is then `Trainer.step` (a group of one

@@ -13,10 +13,17 @@ the parameters the optimizer updates have `requires_grad`, all others do
 not, and the FrozenBatchNorm statistics are buffers, never updated or
 decayed.
 
-The optimizer is `torch.optim.SGD(lr, momentum, weight_decay)`, which
-equals the JAX package's `optax.chain(add_decayed_weights(wd), sgd(lr,
-momentum))`: both add wd * p to the gradient before the momentum trace,
-and on the first step both traces equal that gradient.
+The optimizer is `torch.optim.SGD(lr, momentum, weight_decay,
+fused=True)`, which equals the JAX package's
+`optax.chain(add_decayed_weights(wd), sgd(lr, momentum))`: both add wd * p
+to the gradient before the momentum trace, and on the first step both
+traces equal that gradient. The trainer keeps every address that a step
+writes fixed, so that a CUDA graph can replay it (`train/graphs.py`): the
+gradients and momentum buffers exist from the start and are zeroed in
+place, never freed (0 + g is g, and a zero trace times the momentum plus g
+is g: the first step is unchanged), and the learning rate is a 0-d tensor
+on the device, which the schedule fills in place and the fused step reads
+there.
 
 RoI pooling of the sampled rois goes through the differentiable
 `multiscale_roi_align`: the forward kernel and, for the gradient, the
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 from slowfast_vos_tpu_torch.models.heads import (
@@ -38,6 +46,7 @@ from slowfast_vos_tpu_torch.models.pipeline import Pipeline
 from slowfast_vos_tpu_torch.models.rpn import filter_proposals, rpn_loss
 from slowfast_vos_tpu_torch.models.segmentation import TRAINABLE_TOPLEVEL
 from slowfast_vos_tpu_torch.ops.roi_align import ROI_SCALES, multiscale_roi_align
+from slowfast_vos_tpu_torch.train.graphs import TrainStepGraphs
 
 
 def body_layers_to_train(trainable_backbone_layers: int) -> list[str]:
@@ -74,10 +83,30 @@ def trainable_parameters(
     return out
 
 
-def make_optimizer(params, lr: float = 1e-3, momentum: float = 0.9, weight_decay: float = 1e-4):
+def make_optimizer(params, lr: float | torch.Tensor = 1e-3, momentum: float = 0.9, weight_decay: float = 1e-4):
     """SGD with the weight decay added to the gradient before momentum
-    (`train_step.py:53-57`, reference `code/train.py:80`)."""
-    return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay)
+    (`train_step.py:53-57`, reference `code/train.py:80`), one fused kernel
+    per step; `lr` a number or a 0-d float32 tensor on the parameters'
+    device, which the step reads there."""
+    return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay, fused=True)
+
+
+def stage_batch(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    """The batch's fields as tensors on `device`. A field on the host is
+    copied into a fresh host buffer, page-locked on the card, and uploaded
+    from there without a synchronize (as `Pipeline.chunk_inputs` uploads
+    windows); a field already on the device passes as it is."""
+    pin = device.type == "cuda"
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor) and (v.device == device or v.device.type != "cpu"):
+            out[k] = v.to(device, non_blocking=True)
+            continue
+        host = v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        staged = torch.empty(host.shape, dtype=torch.from_numpy(np.empty(0, host.dtype)).dtype, pin_memory=pin)
+        staged.numpy()[...] = host
+        out[k] = staged.to(device, non_blocking=True)
+    return out
 
 
 class Trainer:
@@ -108,7 +137,14 @@ class Trainer:
 
     The trainer trains the pipeline's model in place and leaves it in eval
     mode after every step, so `pipe.infer_sequence` runs the SlowFast
-    BatchNorms on their running statistics."""
+    BatchNorms on their running statistics.
+
+    `graphs`: on the card (the default there) every call's device work runs
+    as a replay of a CUDA graph from the second call of its shape on, the
+    gradient half and the update half each as one graph
+    (`train/graphs.py`; `self.graphs` is the runner); `graphs=False` runs
+    them eagerly, the yardstick. Off the card the trainer runs eagerly, and
+    asking for graphs there raises."""
 
     def __init__(
         self,
@@ -124,7 +160,11 @@ class Trainer:
         trainable_backbone_layers: int | None = None,
         accumulate: int = 1,
         seed: int = 0,
+        graphs: bool | None = None,
     ):
+        on_card = pipe.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"CUDA graphs run on a CUDA device; this trainer's model is on {pipe.device}")
         self.pipe = pipe
         self.model = pipe.model
         self.n_center = n_center
@@ -141,13 +181,18 @@ class Trainer:
         self.params = trainable_parameters(self.model, self.trainable_keys, tbl)
         for name, p in self.model.named_parameters():
             p.requires_grad_(name in self.params)
-            p.grad = None  # no gradient left over from an earlier trainer
-        base_lr = 1.0 if callable(lr) else lr
-        self.optimizer = make_optimizer(list(self.params.values()), base_lr, momentum, weight_decay)
+            # Zero, not None: no gradient left over from an earlier trainer,
+            # and a fixed address for this one's (module docstring).
+            p.grad = torch.zeros_like(p) if name in self.params else None
+        self.lr = torch.full((), 1.0 if callable(lr) else lr, dtype=torch.float32, device=pipe.device)
+        self.optimizer = make_optimizer(list(self.params.values()), self.lr, momentum, weight_decay)
+        for p in self.params.values():
+            self.optimizer.state[p]["momentum_buffer"] = torch.zeros_like(p)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, lr) if callable(lr) else None
         self.accumulate = accumulate
         self.calls = 0
         self.generator = torch.Generator(device=pipe.device).manual_seed(seed)
+        self.graphs = TrainStepGraphs(self) if (on_card if graphs is None else graphs) else None
 
     @property
     def num_anchors(self) -> int:
@@ -179,7 +224,7 @@ class Trainer:
         in train mode)."""
         pipe, cfg, model = self.pipe, self.pipe.cfg, self.model
         f, n = pipe.sf.fast, self.n_center
-        b = {k: torch.as_tensor(v, device=pipe.device) for k, v in batch.items()}
+        b = stage_batch(batch, pipe.device)
 
         # Frozen backbone and RPN: no graph, as under the JAX stop_gradient.
         with torch.set_grad_enabled(self.backbone_trainable and torch.is_grad_enabled()):
@@ -256,6 +301,18 @@ class Trainer:
         """The first half of `step`: the loss and its gradient (divided by
         `accumulate`, added to the parameters' `.grad`) in train mode, the
         SlowFast running statistics updated, the call counted."""
+        batch = stage_batch(batch, self.pipe.device)
+        if self.graphs is not None:
+            metrics = self.graphs.gradient(batch, draws)
+        else:
+            metrics = self.device_gradient(batch, draws)
+        self.calls += 1
+        return metrics
+
+    def device_gradient(self, batch: dict[str, torch.Tensor], draws: dict | None = None) -> dict[str, torch.Tensor]:
+        """The device work of `accumulate_gradient` on a staged batch, which
+        a gradient graph captures: the draws (unless given), the loss and
+        its backward in train mode."""
         if draws is None:
             draws = self.make_draws(int(batch["boxes"].shape[1]))
         self.model.train()
@@ -264,16 +321,28 @@ class Trainer:
             (total / self.accumulate).backward()
         finally:
             self.model.eval()
-        self.calls += 1
         return metrics
 
     def apply_update(self) -> None:
         """The second half of `step`: the optimizer step on the accumulated
-        gradient, which it then clears, and the schedule's step."""
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        gradient, which it then zeroes, and the schedule's step."""
+        group = self.optimizer.param_groups[0]
+        if group["lr"] is not self.lr:  # a restored optimizer state brings its own rate
+            self.lr.fill_(group["lr"])
+            group["lr"] = self.lr
+        if self.graphs is not None:
+            self.graphs.apply_update()
+        else:
+            self.device_update()
         if self.scheduler is not None:
             self.scheduler.step()
+
+    def device_update(self) -> None:
+        """The device work of `apply_update`, which the update graph
+        captures: the fused SGD step at the rate in `self.lr`, and the
+        gradients zeroed in place."""
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=False)
 
     def eval_state_dict(self) -> dict[str, torch.Tensor]:
         """A copy of the model's state dict (weights and the SlowFast running

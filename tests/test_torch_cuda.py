@@ -2,8 +2,9 @@
 its backward against their plain versions, the level assignment on the
 card against the CPU's, the YUV 4:2:0 decode on the card against the CPU's,
 the blocked NMS sweep on the card against the fixpoint, the NMS kernel
-(K3) against the fixpoint, index for index, and the superchunk's CUDA
-graphs (`models/graphs.py`) against the eager path, bit for bit.
+(K3) against the fixpoint, index for index, the superchunk's CUDA
+graphs (`models/graphs.py`) against the eager path, bit for bit, and the
+training step's (`train/graphs.py`) likewise.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -19,6 +20,9 @@ from slowfast_vos_tpu_torch.models.pipeline import Pipeline, build_pipeline, fra
 from slowfast_vos_tpu_torch.models.transform import ImageTransform
 from slowfast_vos_tpu_torch.ops import nms as pnms
 from slowfast_vos_tpu_torch.ops import roi_align as pra
+from slowfast_vos_tpu_torch import data
+from slowfast_vos_tpu_torch.train import Trainer
+from slowfast_vos_tpu_torch.train.pretrain import warmup_step_lr
 
 
 @pytest.mark.cuda
@@ -454,3 +458,147 @@ def test_graph_replays_count_their_kernel_launches(cuda_device):
     assert counts == [{7: chunks, 14: chunks, "nms": 2 * chunks}] * 3
     for captured in pipe.graphs.graphs.values():
         assert captured.launches == {7: 1, 14: 1, "nms": 2}
+
+
+# The training step's CUDA graphs, at the `__graft_entry__` size in f32
+# (TF32 off), default DetectionConfig: (Trainer arguments, second canvas).
+TRAIN_HW, SECOND_HW = (120, 200), (160, 160)  # canvases 128x256 and 128x128
+TRAIN_CASES = {
+    "accumulate 1": (dict(), False),
+    "accumulate 2": (dict(accumulate=2, n_center=1), False),
+    "freeze none": (dict(train_backbone=True, train_slow_fast=True), False),
+    "freeze SF": (dict(train_backbone=True, train_slow_fast=False), False),
+    "freeze BB_SF": (dict(train_backbone=False, train_slow_fast=False), False),
+    "backbone with a schedule": (dict(train_backbone=True, trainable_backbone_layers=3,
+                                      lr=warmup_step_lr(1e-3, 4, warmup_iters=3)), False),
+    "two canvases": (dict(train_backbone=True, trainable_backbone_layers=3), True),
+}
+TRAIN_KEYS = (7, 14, ("backward", 7), ("backward", 14), "nms")
+
+
+def train_setup(n_center=2, second=False):
+    """Pipelines on the card over one seeded model (a second canvas if
+    asked) and 8 calls' windows of seeded moving blobs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe, model = build_pipeline(3, 3, TRAIN_HW, dtype=torch.float32, device="cuda", superchunk=4,
+                                 min_size=128, max_size=256)
+    init_weights(model, 0)
+    pipes = [pipe]
+    if second:
+        pipes.append(Pipeline(model, ImageTransform(SECOND_HW, min_size=128, max_size=256), superchunk=4))
+    calls = []
+    for k in range(8):
+        p = pipes[k % len(pipes)]
+        images, ids = data.draw_sequence(np.random.default_rng(k % len(pipes)), 6, *p.transform.original_hw, 2)
+        wins = list(data.train_windows(data.sequence_arrays(images, ids, p.cfg.max_gt), fast=3, n_center=n_center))
+        calls.append((p, wins[k // len(pipes) % len(wins)]))
+    return pipes, calls
+
+
+def train_run(pipes, calls, start, graphs, **kw):
+    """The calls of a fresh trainer from the model state `start`: after each,
+    the metrics, the gradients before the update, the weights after it, the
+    running statistics and the generator's state."""
+    model = pipes[0].model
+    model.load_state_dict(start)
+    tr = Trainer(pipes[0], graphs=graphs, seed=3, **kw)
+    out = []
+    for p, batch in calls:
+        tr.use_pipeline(p)
+        metrics = tr.accumulate_gradient(batch)
+        grads = [x.grad.clone() for x in tr.params.values()]
+        if tr.calls % tr.accumulate == 0:
+            tr.apply_update()
+        out.append([*(metrics[k] for k in sorted(metrics)), *grads, *(v.clone() for v in model.state_dict().values()),
+                    tr.generator.get_state()])
+    return out, tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_train_graphs_equal_eager_steps_bit_for_bit(cuda_device, case):
+    """8 calls on the step graphs (each key's first call eager, then
+    captured, then replays) against 8 eager calls from the same state and
+    seed: losses, gradients, every weight and running statistic after each
+    update and the generator's state, bit for bit. At this size in f32
+    cuDNN's default choice of weight-gradient algorithm is not
+    reproducible (two eager runs differ by ~1e-8 in some gradients at the
+    first call), so the runs pin its deterministic algorithms, and two
+    eager runs are first held equal to each other."""
+    kw, second = TRAIN_CASES[case]
+    pipes, calls = train_setup(kw.get("n_center", 2), second)
+    start = {k: v.clone() for k, v in pipes[0].model.state_dict().items()}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        want, _ = train_run(pipes, calls, start, False, **kw)
+        again, _ = train_run(pipes, calls, start, False, **kw)
+        got, tr = train_run(pipes, calls, start, True, **kw)
+    assert tr.graphs.captures == len(pipes) + 1 and len(tr.graphs.graphs) == len(pipes)
+    for k, (g, a, w) in enumerate(zip(got, again, want)):
+        assert all(torch.equal(x, y) for x, y in zip(a, w)), f"two eager runs differ at call {k}"
+        assert all(torch.equal(x, y) for x, y in zip(g, w)), f"call {k}"
+    assert not all(torch.equal(v, start[k]) for k, v in pipes[0].model.state_dict().items())
+
+
+@pytest.mark.cuda
+def test_train_step_has_no_host_synchronize(cuda_device):
+    """A warm step, its batch staged and uploaded from host arrays, on
+    either path under the sync debug mode "error"."""
+    pipes, calls = train_setup()
+    tr = Trainer(pipes[0])
+    runner, batch = tr.graphs, calls[1][1]
+    for graphs in (None, runner, None, runner):
+        tr.graphs = graphs
+        tr.step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = tr.step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.cuda
+def test_train_graph_replays_count_their_kernel_launches(cuda_device):
+    """Each gradient graph records one launch of K1 and K5 at both pools and
+    one of K3 (the backward's from autograd's thread too), the update graph
+    none; a replayed step counts what an eager step counts."""
+    pipes, calls = train_setup()
+    tr = Trainer(pipes[0])
+    runner, batch = tr.graphs, calls[1][1]
+    counts = []
+    for graphs in (None, runner, runner, runner):
+        tr.graphs = graphs
+        before = {k: pra.launches[k] for k in TRAIN_KEYS}
+        tr.step(batch)
+        counts.append({k: pra.launches[k] - v for k, v in before.items()})
+    assert counts == [{k: 1 for k in TRAIN_KEYS}] * 4
+    assert [c.launches for c in runner.graphs.values()] == [{k: 1 for k in TRAIN_KEYS}]
+    assert runner.update.launches == {}
+
+
+@pytest.mark.cuda
+def test_train_graphs_recapture_after_a_parameter_is_replaced(cuda_device):
+    """A frozen parameter replaced after capture drops the step graphs; the
+    next step captures anew, and the replays compute with the new tensor:
+    a replayed step's losses equal an eager step's from the same state and
+    caller draws."""
+    pipes, calls = train_setup()
+    tr = Trainer(pipes[0])
+    runner, batch = tr.graphs, calls[1][1]
+    draws = tr.make_draws(int(batch["boxes"].shape[1]))
+    for _ in range(2):
+        tr.step(batch, draws)
+    assert runner.captures == 2
+    conv = pipes[0].model.backbone.body.conv1
+    conv.weight = torch.nn.Parameter(conv.weight.detach() * 1.5, requires_grad=False)
+    tr.step(batch, draws)
+    assert runner.captures == 4
+    start = {k: v.clone() for k, v in pipes[0].model.state_dict().items()}
+    got = tr.step(batch, draws)
+    assert runner.captures == 4
+    pipes[0].model.load_state_dict(start)
+    tr.graphs = None
+    want = tr.step(batch, draws)
+    assert all(torch.equal(got[k], want[k]) for k in want)

@@ -78,7 +78,7 @@ def runs(roots, tmp_path_factory):
         return jax_draws(next(keys), self.n_center, self.num_anchors, self.pipe.cfg.rpn_post_nms_top_n_train + num_gt)
 
     def recording_step(self, batch, draws=None):
-        lrs.append(self.optimizer.param_groups[0]["lr"])
+        lrs.append(float(self.optimizer.param_groups[0]["lr"]))  # a device tensor the schedule fills in place
         return step(self, batch, draws)
 
     port_out = str(tmp_path_factory.mktemp("port_pre"))

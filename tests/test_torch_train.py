@@ -258,7 +258,7 @@ def test_invalid_frames_give_zero_trainable_loss(setup):
 def test_accumulate_steps_once_per_k_calls(setup):
     """accumulate=2 (optax MultiSteps): the first call leaves every weight
     as it was, the second steps SGD once with the mean of both calls'
-    gradients."""
+    gradients and then zeroes them."""
     pipe, tr = port_trainer(setup["variables"], accumulate=2)
     w0 = {k: p.detach().clone() for k, p in tr.params.items()}
     draws = [tr.make_draws(3) for _ in range(2)]
@@ -273,7 +273,7 @@ def test_accumulate_steps_once_per_k_calls(setup):
         if i == 0:
             assert all(torch.equal(p, w0[k]) for k, p in tr.params.items())
             assert all(p.grad is not None for p in tr.params.values())
-    assert all(p.grad is None for p in tr.params.values())
+    assert all(p.grad is not None and not p.grad.any() for p in tr.params.values())  # zeroed in place
     ref = [torch.nn.Parameter(w0[k].clone()) for k in tr.params]
     for p, k in zip(ref, tr.params):
         p.grad = mean[k]
