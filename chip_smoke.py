@@ -23,8 +23,9 @@ Phases, each fatal on failure:
              `train_windows` (2 centre frames + halo) on the card's default
              path (the first step eager and captured, then CUDA graph
              replays), launch counts read around those steps (forward and
-             backward kernel at both pools and K3 in every step, replays
-             included), finite losses, trainable weights moved, frozen
+             backward kernel at both pools and K3 in every step, K6's
+             forward and backward 32 times each, replays included), finite
+             losses, trainable weights moved, frozen
              ones and FrozenBatchNorm buffers bit-identical, SlowFast running
              statistics moved, ms/step and peak device memory, then
              `infer_sequence` on the trained model; the first step's sampled
@@ -139,6 +140,16 @@ Phases, each fatal on failure:
              paths; ms/step in turns, capture times and both memory peaks;
              reserved memory over successive OSVOS trainers. Phases 3, 7
              and 9 train on step graphs already.
+13. bn     - K6, SlowFast's train-mode BatchNorm (`csrc/batch_norm.cu`), on
+             phase 3's own inputs: one eager step of phase 3's set-up keeps
+             all 32 calls (8 BatchNorms x 4 FPN levels, bf16), their inputs
+             and the gradients their outputs receive (and those gradients'
+             layouts); per call the forward kernel against the plain forward
+             and float64 statistics, the normalize and the backward kernel
+             against their plain versions on the same inputs; device times
+             of the kernels, the plain versions and `F.batch_norm`
+             (forward and backward) per call at P2's `bn_s1` [4, 192, 192,
+             336] and summed over the step, against the bounds.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -166,9 +177,13 @@ SC = 8
 TRAIN_STEPS = 8
 DRIVER_HW = (480, 854)  # DAVIS 480p
 GRAD_SHARE = 1e-3  # tests/test_torch_train.py's gradient tolerance
-# Kernel launch keys (`cuda_build.launches`): K1 and K5 at both pools, K3.
-LAUNCH_KEYS = (7, 14, ("backward", 7), ("backward", 14), "nms")
+# Kernel launch keys (`cuda_build.launches`): K1 and K5 at both pools, K3,
+# K6's forward and backward.
+BN_KEYS = ("bn", ("backward", "bn"))
+LAUNCH_KEYS = (7, 14, ("backward", 7), ("backward", 14), "nms", *BN_KEYS)
 FORWARD_KEYS = (7, 14, "nms")  # what inference launches
+NO_SLOWFAST_KEYS = LAUNCH_KEYS[:5]  # what the Mask R-CNN fine-tune launches: it has no SlowFast
+BN_PER_STEP = 32  # K6 calls a train step makes, forward and backward: 8 BatchNorms x 4 FPN levels
 
 
 def log(msg: str) -> None:
@@ -538,6 +553,7 @@ def phase_train(ra, pipeline_mod, train_mod, data) -> tuple[dict, dict, dict]:
     log(f"train: launches over {TRAIN_STEPS} steps: {launch_text(counts)}")
     for i, c in enumerate(per_step):
         check(all(v >= 1 for v in c.values()), f"step {i} bypassed a kernel: {c}")
+        check(all(c[k] == BN_PER_STEP for k in BN_KEYS), f"step {i}: {BN_PER_STEP} launches of K6 each way expected: {c}")
     step_ms = statistics.median(times[1:])
     check(trainer.graphs.captures == 2, f"train: {trainer.graphs.captures} step graphs captured, 2 expected")
     log(f"train: {step_ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, graph replays, synchronized), "
@@ -700,9 +716,14 @@ def relu_branches(masks: list, replay: bool):
     """Record every ReLU's branch (input > 0) in call order, or replay
     recorded branches (output = input * branch): a ReLU whose input lies
     within the two devices' f32 drift of zero then takes the same side in
-    both runs, and the gradients are comparable."""
+    both runs, and the gradients are comparable. The ReLUs K6 fuses into
+    SlowFast's train-mode BatchNorm (`batch_norm_train_fused(relu=True)`)
+    count too: recorded from the fused output (> 0 exactly where the BN's
+    output is), replayed by the unfused BN times the branch."""
+    from slowfast_vos_tpu_torch.ops import batch_norm as fused_bn
+
     functional = torch.nn.functional
-    orig = functional.relu
+    orig, orig_bn = functional.relu, fused_bn.batch_norm_train_fused
     it = iter(masks)
 
     def relu(x, inplace=False):
@@ -711,11 +732,20 @@ def relu_branches(masks: list, replay: bool):
         masks.append((x > 0).cpu())
         return orig(x)
 
-    functional.relu = relu
+    def bn_relu(x, bn, relu=False, momentum=0.9):
+        if not relu:
+            return orig_bn(x, bn, False, momentum)
+        if replay:
+            return orig_bn(x, bn, False, momentum) * next(it).to(x.device)
+        y = orig_bn(x, bn, True, momentum)
+        masks.append((y > 0).cpu())
+        return y
+
+    functional.relu, fused_bn.batch_norm_train_fused = relu, bn_relu
     try:
         yield
     finally:
-        functional.relu = orig
+        functional.relu, fused_bn.batch_norm_train_fused = orig, orig_bn
     check(not replay or next(it, None) is None, "the replayed step called ReLU fewer times than the recorded one")
 
 
@@ -806,12 +836,12 @@ def launch_text(c: dict) -> str:
     """A launch-count dict (keys as in LAUNCH_KEYS or their str()) as text."""
     get = lambda k: c[k] if k in c else c[str(k)]  # noqa: E731
     return (f"pool7 {get(7)}, pool14 {get(14)}, backward pool7 {get(('backward', 7))}, backward pool14 "
-            f"{get(('backward', 14))}, nms {get('nms')}")
+            f"{get(('backward', 14))}, nms {get('nms')}, bn {get('bn')}, backward bn {get(('backward', 'bn'))}")
 
 
 @contextlib.contextmanager
 def launches_of(ra, counts: dict, name: str, required=LAUNCH_KEYS, tag: str = "drivers"):
-    """Launch counts of K1 and K5 at both pools and of K3 over the block,
+    """Launch counts of K1 and K5 at both pools, K3 and K6 over the block,
     kept under `name`; those of `required` checked above zero."""
     ra.launches.clear()
     yield
@@ -932,7 +962,7 @@ def phase_drivers(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
     ppipe, pmodel = pretrain.build_maskrcnn_pipeline(hw, dtype=torch.bfloat16, device="cuda", superchunk=SC)
     pipeline_mod.init_weights(pmodel, seed=0)
     start = {k: v.detach().clone() for k, v in pmodel.state_dict().items()}
-    with launches_of(ra, counts, "train_maskrcnn"), timed_steps(train_mod) as step_ms:
+    with launches_of(ra, counts, "train_maskrcnn", NO_SLOWFAST_KEYS), timed_steps(train_mod) as step_ms:
         t0 = time.perf_counter()
         _, history = pretrain.train_maskrcnn(
             ppipe, davis_root=train_root, output_dir=str(workdir / "pretrain"), epochs=1, max_steps_per_epoch=3,
@@ -998,7 +1028,8 @@ def phase_cli(ra, data, workdir: Path) -> dict:
 
     pre, run_dir = str(workdir / "pre"), str(workdir / "unsupervised")
     ckpt = str(Path(pre) / "maskrcnn_model.pt")
-    out = run("pretrain", torch_pretrain_maskrcnn, ["--davis-root", train_root, "--output", pre, "--epochs", "1"])
+    out = run("pretrain", torch_pretrain_maskrcnn, ["--davis-root", train_root, "--output", pre, "--epochs", "1"],
+              NO_SLOWFAST_KEYS)
     check(len(out["history"]) == 1 and np.isfinite(out["history"][0]["loss"]), f"pretrain history {out['history']}")
     # The proposal dump runs the backbone and the RPN only: NMS, no RoIAlign.
     out = run("pretrain --predict-boxes", torch_pretrain_maskrcnn,
@@ -2005,6 +2036,17 @@ def train_record(train_mod, pipes, kw, calls, start, graphs: bool) -> tuple[dict
     return rec, tr
 
 
+def step_graph_launches(slow_fast: bool) -> dict:
+    """What one gradient graph records, and a warm step launches: K1 and K5
+    at both pools and K3 once; with SlowFast, BN_PER_STEP launches of K6's
+    forward and of its backward (OSVOS's SF freeze too: its backbone
+    trains, so SlowFast's input needs its gradient)."""
+    out = {k: 1 for k in NO_SLOWFAST_KEYS}
+    if slow_fast:
+        out.update({k: BN_PER_STEP for k in BN_KEYS})
+    return out
+
+
 def record_diff(a: dict, b: dict) -> dict:
     """Per group of two records: (bit for bit equal at every call, the
     largest absolute difference at each call)."""
@@ -2026,8 +2068,9 @@ def phase_train_graphs(ra, pipeline_mod, train_mod, data) -> dict:
     their largest difference up to that call. In the unsupervised set-up:
     inference graphs captured before the graph run replay on the trained
     weights after it, equal to an eager pipeline; each gradient graph
-    records one launch of K1 and K5 at both pools and one of K3, the update
-    graph none, and a warm graph step counts those; the host's part of a
+    records one launch of K1 and K5 at both pools and one of K3, and with
+    SlowFast 32 of K6's forward and backward (`step_graph_launches`), the
+    update graph none, and a warm graph step counts those; the host's part of a
     warm step on either path under the sync debug mode "error"; ms/step of
     both paths in turns; capture seconds; peak device memory of each path.
     Then OSVOS trainers one after another on one pipeline (a sequence
@@ -2064,10 +2107,12 @@ def phase_train_graphs(ra, pipeline_mod, train_mod, data) -> dict:
         cell["capture_s"] = {**{f"gradient {dict(k[1])['images'][0]}": g.capture_s for k, g in runner.graphs.items()},
                              "update": runner.update.capture_s}
         for g in runner.graphs.values():
-            check(g.launches == {k: 1 for k in LAUNCH_KEYS}, f"train graphs: {name}: a gradient graph recorded {g.launches}")
+            check(g.launches == step_graph_launches(model.use_slow_fast),
+                  f"train graphs: {name}: a gradient graph recorded {g.launches}")
         check(runner.update.launches == {}, f"train graphs: {name}: the update graph recorded {runner.update.launches}")
-        log(f"train graphs: {name}: {runner.captures} captures, each gradient graph recording one launch of each "
-            f"kernel; capture s " + ", ".join(f"{k} {v:.3f}" for k, v in cell["capture_s"].items()))
+        log(f"train graphs: {name}: {runner.captures} captures, each gradient graph recording "
+            f"{step_graph_launches(model.use_slow_fast)}; capture s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in cell["capture_s"].items()))
         del recs, tr, runner
         if infer_check:
             got = pipes[0].infer_sequence(clip)
@@ -2117,7 +2162,7 @@ def train_graph_timings(ra, train_mod, pipe, kw, calls) -> dict:
     ra.launches.clear()
     tr.step(batch)
     counts = {k: ra.launches[k] for k in LAUNCH_KEYS}
-    check(counts == {k: 1 for k in LAUNCH_KEYS}, f"train graphs: a warm graph step launched {counts}")
+    check(counts == step_graph_launches(True), f"train graphs: a warm graph step launched {counts}")
     out["warm_step_launches"] = {str(k): v for k, v in counts.items()}
     for name, fn in (("eager", eager_step), ("graphs", lambda: tr.step(batch))):
         torch.cuda.synchronize()
@@ -2126,7 +2171,7 @@ def train_graph_timings(ra, train_mod, pipe, kw, calls) -> dict:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    log("train graphs: a warm graph step launched one of each kernel; the host's part of a warm step under sync "
+    log(f"train graphs: a warm graph step launched {launch_text(counts)}; the host's part of a warm step under sync "
         "debug \"error\" on both paths: no synchronize")
     timed = turns({"eager": eager_step, "graphs": lambda: tr.step(batch)}, TRAIN_TURNS)
     out["step_ms_runs"] = {k: [t * 1e3 for t in v] for k, v in timed.items()}
@@ -2156,6 +2201,246 @@ def osvos_memory(train_mod, cell) -> list:
         + ", ".join(f"{r:.2f}" for r in reserved) + " GiB")
     check(reserved[-1] <= reserved[0] + 0.25, "train graphs: reserved memory grows with OSVOS sequences")
     return reserved
+
+
+# Phase 13: K6, SlowFast's train-mode BatchNorm, on phase 3's own inputs.
+BN_OPS_FORWARD = 7  # f32 operations an element: x and x*x summed (3), (x - mean) * mul + beta (3), the ReLU (1)
+BN_OPS_BACKWARD = 10  # xhat (2), dy' and dy' * xhat summed (3), the apply's two differences, product and scale (5)
+# K6's device kernels by name: the forward's three, then the backward's.
+BN_KERNELS = ("bn_reduce_kernel", "bn_finalize_forward_kernel", "bn_normalize_kernel",
+              "bn_reduce_kernel", "bn_finalize_backward_kernel", "bn_apply_kernel")
+
+
+@contextlib.contextmanager
+def keeping_bn_calls():
+    """Within the block, every `batch_norm_train_fused` call keeps copies
+    of its input, the module (by reference), its parameters and running
+    statistics before the call, its ReLU flag, and the gradient its output
+    receives in the backward (as autograd hands it over: its row stride is
+    kept, the copy is channels-last)."""
+    from slowfast_vos_tpu_torch.ops import batch_norm as fused_bn
+
+    orig = fused_bn.batch_norm_train_fused
+    calls = []
+
+    def keep(x, bn, relu=False, momentum=0.9):
+        call = {"x": x.detach().clone(), "bn": bn, "relu": relu, "momentum": momentum,
+                **{k: getattr(bn, k).detach().clone() for k in ("weight", "bias", "running_mean", "running_var")}}
+        y = orig(x, bn, relu, momentum)
+
+        def hook(g):
+            call["dy_row_stride"], call["dy_strides"] = fused_bn.row_stride(g), g.stride()
+            call["dy"] = g.detach().contiguous(memory_format=torch.channels_last)
+
+        if y.requires_grad:
+            y.register_hook(hook)
+        calls.append(call)
+        return y
+
+    fused_bn.batch_norm_train_fused = keep
+    try:
+        yield calls
+    finally:
+        fused_bn.batch_norm_train_fused = orig
+
+
+def bn_close(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, largest share of the tolerance) of a bf16 tensor
+    against its plain version: one bf16 ulp at the larger magnitude plus
+    1e-6 of the tensor's max (tests/test_torch_cuda.py::assert_bn_close:
+    statistics summed in another order move an element by ~1e-7 of the
+    tensor's scale)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    big = torch.maximum(got.abs(), want.abs()).clamp(min=2.0**-126)
+    tol = torch.exp2(torch.floor(torch.log2(big)) - 7) + 1e-6 * want.abs().max()
+    return float(diff.max()), float((diff / tol).max())
+
+
+def bn_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def bn_bounds(x: torch.Tensor) -> dict:
+    """Least times of K6 on this input on an H100, each the larger of bytes
+    over the memory rate and f32 operations over the f32 rate: the forward
+    reads x and the [C] parameters and running statistics once and writes
+    y, the [4, C] statistics and the running statistics once; the backward
+    reads dy, x, the statistics, weight and bias once and writes dx, dweight
+    and dbias once. Also the two-pass design's own least bytes: x read twice
+    in the forward, x and dy twice in the backward."""
+    c, rows, elem = x.shape[1], x.numel() // x.shape[1], x.element_size()
+    plane = rows * c * elem
+    fwd_bytes, bwd_bytes = 2 * plane + 14 * c * 4, 3 * plane + 8 * c * 4
+    out = {}
+    for name, nbytes, ops, passes in (("forward", fwd_bytes, BN_OPS_FORWARD, 3), ("backward", bwd_bytes, BN_OPS_BACKWARD, 5)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, rows * c * ops / F32_FLOP_PER_S * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "two_pass_bound_ms": passes * plane / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def library_batch_norm(call: dict):
+    """(forward, backward) closures of `F.batch_norm(training=True)` on the
+    call's input, f32 parameters and copies of its running statistics
+    (no ReLU: one PyTorch call; its running update puts the unbiased
+    variance in, so it is a yardstick only), the backward through autograd
+    on a kept graph."""
+    x = call["x"].detach().requires_grad_(True)
+    # f32 parameters with a bf16 input, as K6 takes them (PyTorch's own
+    # mixed-type BatchNorm).
+    w, b = (call[k].clone().requires_grad_(True) for k in ("weight", "bias"))
+    rm, rv = call["running_mean"].clone(), call["running_var"].clone()
+    fwd = lambda: torch.nn.functional.batch_norm(x, rm, rv, w, b, True, 0.1, call["bn"].eps)  # noqa: E731
+    y = fwd()
+    bwd = lambda: torch.autograd.grad(y, (x, w, b), call["dy"], retain_graph=True)  # noqa: E731
+    return fwd, bwd
+
+
+def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
+    """K6 on phase 3's own BatchNorm inputs: one eager step of phase 3's
+    set-up (the same seeded model and window) keeps every call of
+    `batch_norm_train_fused` (8 BatchNorms x 4 FPN levels), its input and
+    the gradient its output receives. Per call, in bf16 as the step runs
+    it: the forward kernel against `batch_norm_train_plain` (mean and the
+    running statistics rel 1e-5 of each tensor's max; var, the difference
+    of two f32 means of magnitude E[x^2], within 1e-5 of the largest
+    E[x^2]) and the statistics in float64 (mean and var within 1e-6 of each
+    channel's E[x^2], 16 f32 ulps of the terms), and against
+    `batch_norm_normalize` of the kernel's own statistics (y: one bf16 ulp,
+    `bn_close`); the backward kernel against
+    `batch_norm_train_backward_plain` on the same inputs (dx by `bn_close`,
+    dweight and dbias rel 1e-4). Then device times (CUDA events behind a
+    spin) of the kernels, the plain versions and `F.batch_norm`, forward
+    and backward, per call at P2's `bn_s1` and summed over the 32, against
+    the bounds. Returns the records "bn" and "bn_backward"."""
+    from slowfast_vos_tpu_torch.models import slowfast as sf
+    from slowfast_vos_tpu_torch.ops import batch_norm as fused_bn
+
+    pipe, model, trainer, batch, _ = full_width_trainer(pipeline_mod, train_mod, data)
+    trainer.graphs = None  # a replay calls no Python: the step that keeps the calls runs eagerly
+    names = {id(m): n for n, m in model.named_modules()}
+    with keeping_bn_calls() as calls:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    check(len(calls) == BN_PER_STEP and all("dy" in c for c in calls),
+          f"bn: {len(calls)} calls kept, {sum('dy' in c for c in calls)} with a gradient; {BN_PER_STEP} expected")
+    log(f"bn: {len(calls)} calls of one step kept, {sum(c['x'].numel() for c in calls) / 1e6:.1f} M elements; "
+        f"the gradients' layouts at P2 (name, C, row stride or None, strides): "
+        + "; ".join(f"{names[id(c['bn'])]} {c['x'].shape[1]} {c['dy_row_stride']} {c['dy_strides']}" for c in calls[:8])
+        + " (a row stride above C: a channel slice from the backward of a cat)")
+    err = {"y": 0.0, "dx": 0.0}
+    share = {"y": 0.0, "dx": 0.0}
+    rel = {"mean": 0.0, "var": 0.0, "running": 0.0, "dweight": 0.0, "dbias": 0.0}
+    exact = {"kernel": 0.0, "plain": 0.0}  # largest |stat - float64 stat| / E[x^2] of mean and var
+    with torch.no_grad():
+        for c in calls:
+            x, relu, w, b = c["x"], c["relu"], c["weight"], c["bias"]
+            rm, rv = c["running_mean"].clone(), c["running_var"].clone()
+            y, stats = fused_bn.batch_norm_forward_cuda(x, w, b, rm, rv, c["bn"].eps, c["momentum"], relu)
+            plain = torch.nn.BatchNorm3d(x.shape[1], eps=c["bn"].eps).cuda()
+            for k in ("weight", "bias", "running_mean", "running_var"):
+                getattr(plain, k).copy_(c[k])
+            _, want_stats = sf.batch_norm_train_plain(x, plain, c["momentum"], relu)
+            e, sh = bn_close(y, sf.batch_norm_normalize(x, stats, w, b, relu))
+            err["y"], share["y"] = max(err["y"], e), max(share["y"], sh)
+            xd = x.double()
+            mean64 = xd.mean(dim=(0, 2, 3))
+            ex2 = (xd * xd).mean(dim=(0, 2, 3))
+            var64 = (ex2 - mean64 * mean64).clamp(min=0)
+            for side, st in (("kernel", stats), ("plain", want_stats)):
+                off = torch.maximum((st[0].double() - mean64).abs(), (st[1].double() - var64).abs()) / ex2
+                exact[side] = max(exact[side], float(off.max()))
+            del xd
+            rel["mean"] = max(rel["mean"], bn_rel(stats[0], want_stats[0]))
+            rel["var"] = max(rel["var"], float((stats[1] - want_stats[1]).abs().max() / ex2.max()))
+            rel["running"] = max(rel["running"], bn_rel(rm, plain.running_mean), bn_rel(rv, plain.running_var))
+            dx, dw, db = fused_bn.batch_norm_backward_cuda(c["dy"], x, stats, w, b, relu)
+            want_dx, want_dw, want_db = sf.batch_norm_train_backward_plain(c["dy"], x, stats, w, b, relu)
+            e, sh = bn_close(dx, want_dx)
+            err["dx"], share["dx"] = max(err["dx"], e), max(share["dx"], sh)
+            rel["dweight"], rel["dbias"] = max(rel["dweight"], bn_rel(dw, want_dw)), max(rel["dbias"], bn_rel(db, want_db))
+    log(f"bn: kernels against the plain versions over the {len(calls)} calls: y max abs err {err['y']:.3e} "
+        f"({share['y']:.3f} of one bf16 ulp + 1e-6 max), dx {err['dx']:.3e} ({share['dx']:.3f}); rel err mean "
+        f"{rel['mean']:.2e}, var {rel['var']:.2e} (of the largest E[x^2]), running statistics {rel['running']:.2e} "
+        f"(tol 1e-5), dweight {rel['dweight']:.2e}, dbias {rel['dbias']:.2e} (tol 1e-4); against float64 statistics, "
+        f"largest error / E[x^2]: kernel {exact['kernel']:.2e} (tol 1e-6), plain {exact['plain']:.2e}")
+    check(share["y"] <= 1 and share["dx"] <= 1, "bn: a kernel's output disagrees with its plain version")
+    check(max(rel["mean"], rel["var"], rel["running"]) <= 1e-5 and max(rel["dweight"], rel["dbias"]) <= 1e-4
+          and exact["kernel"] <= 1e-6, "bn: the kernels' statistics or parameter gradients disagree with the plain versions")
+
+    def timings(c) -> dict:
+        x, relu, w, b = c["x"], c["relu"], c["weight"], c["bias"]
+        rm, rv = c["running_mean"].clone(), c["running_var"].clone()
+        _, stats = fused_bn.batch_norm_forward_cuda(x, w, b, rm, rv, c["bn"].eps, c["momentum"], relu)
+        plain = torch.nn.BatchNorm3d(x.shape[1], eps=c["bn"].eps).cuda()
+        lib_fwd, lib_bwd = library_batch_norm(c)
+        with torch.no_grad():
+            out = {
+                "ms": device_ms(lambda: fused_bn.batch_norm_forward_cuda(x, w, b, rm, rv, c["bn"].eps, 0.9, relu)),
+                "backward_ms": device_ms(lambda: fused_bn.batch_norm_backward_cuda(c["dy"], x, stats, w, b, relu)),
+                "plain_ms": device_ms(lambda: sf.batch_norm_train_plain(x, plain, 0.9, relu)),
+                "plain_backward_ms": device_ms(
+                    lambda: sf.batch_norm_train_backward_plain(c["dy"], x, stats, w, b, relu)),
+            }
+        out["library_ms"], out["library_backward_ms"] = device_ms(lib_fwd), device_ms(lib_bwd)
+        return out
+
+    per_call = []
+    for c in calls:
+        t = timings(c)
+        t.update({"name": names[id(c["bn"])], "shape": list(c["x"].shape), "relu": c["relu"],
+                  "bounds": bn_bounds(c["x"])})
+        per_call.append(t)
+    big = max(range(len(calls)), key=lambda i: calls[i]["x"].numel())
+    top = per_call[big]
+    c = calls[big]
+    rm, rv = c["running_mean"].clone(), c["running_var"].clone()
+    _, stats = fused_bn.batch_norm_forward_cuda(c["x"], c["weight"], c["bias"], rm, rv, c["bn"].eps, 0.9, c["relu"])
+    top["kernels_ms"], _ = kernel_ms_by_name(lambda: fused_bn.batch_norm_forward_cuda(
+        c["x"], c["weight"], c["bias"], rm, rv, c["bn"].eps, 0.9, c["relu"]), BN_KERNELS[:3])
+    top["backward_kernels_ms"], _ = kernel_ms_by_name(lambda: fused_bn.batch_norm_backward_cuda(
+        c["dy"], c["x"], stats, c["weight"], c["bias"], c["relu"]), BN_KERNELS[3:])
+    log(f"time: bn {top['name']} by kernel (torch.profiler), forward: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in top["kernels_ms"].items()) + "; backward: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in top["backward_kernels_ms"].items()))
+    total = {k: sum(t[k] for t in per_call) for k in ("ms", "backward_ms", "plain_ms", "plain_backward_ms",
+                                                      "library_ms", "library_backward_ms")}
+    for d in ("forward", "backward"):
+        for k in ("bound_ms", "two_pass_bound_ms"):
+            total[f"{d}_{k}"] = sum(t["bounds"][d][k] for t in per_call)
+    log(f"time: bn {top['name']} {top['shape']} bf16: forward {top['ms']:.4f} ms (plain {top['plain_ms']:.4f}, "
+        f"F.batch_norm {top['library_ms']:.4f}; bound {top['bounds']['forward']['bound_ms']:.4f}, two-pass "
+        f"{top['bounds']['forward']['two_pass_bound_ms']:.4f}), backward {top['backward_ms']:.4f} ms (plain "
+        f"{top['plain_backward_ms']:.4f}, F.batch_norm's {top['library_backward_ms']:.4f}; bound "
+        f"{top['bounds']['backward']['bound_ms']:.4f}, two-pass {top['bounds']['backward']['two_pass_bound_ms']:.4f})")
+    log(f"time: bn summed over the step's {len(calls)} calls: forward {total['ms']:.4f} ms (plain {total['plain_ms']:.4f}, "
+        f"F.batch_norm {total['library_ms']:.4f}; bound {total['forward_bound_ms']:.4f}, two-pass "
+        f"{total['forward_two_pass_bound_ms']:.4f}), backward {total['backward_ms']:.4f} ms (plain "
+        f"{total['plain_backward_ms']:.4f}, F.batch_norm's {total['library_backward_ms']:.4f}; bound "
+        f"{total['backward_bound_ms']:.4f}, two-pass {total['backward_two_pass_bound_ms']:.4f})")
+    common = {"route": "cuda", "source": "slowfast_vos_tpu_torch/csrc/batch_norm.cu",
+              "replaces": "slowfast_vos_tpu/models/slowfast.py:209",
+              "replaces_note": "flax nn.BatchNorm(use_running_average=False) at slowfast.py:209-214 and :226-231, "
+                               "computed by XLA; there is no Pallas kernel for it",
+              "call": {"name": top["name"], "shape": top["shape"], "dtype": "bfloat16"}}
+    fwd_b, bwd_b = top["bounds"]["forward"], top["bounds"]["backward"]
+    return [
+        {"name": "bn", **common, "launches": counts["bn"], "max_abs_err": err["y"], "ms": top["ms"],
+         "plain_ms": top["plain_ms"], "bound_ms": fwd_b["bound_ms"], "bound_by": fwd_b["bound_by"],
+         "library_ms": top["library_ms"], "two_pass_bound_ms": fwd_b["two_pass_bound_ms"],
+         "step": {k: total[k] for k in ("ms", "plain_ms", "library_ms", "forward_bound_ms",
+                                        "forward_two_pass_bound_ms")},
+         "stats_rel_err": {k: rel[k] for k in ("mean", "var", "running")},
+         "stats_err_against_float64": exact, "per_call": per_call},
+        {"name": "bn_backward", **common, "launches": counts[("backward", "bn")], "max_abs_err": err["dx"],
+         "ms": top["backward_ms"], "plain_ms": top["plain_backward_ms"], "bound_ms": bwd_b["bound_ms"],
+         "bound_by": bwd_b["bound_by"], "library_ms": top["library_backward_ms"],
+         "two_pass_bound_ms": bwd_b["two_pass_bound_ms"],
+         "step": {k: total[k] for k in ("backward_ms", "plain_backward_ms", "library_backward_ms",
+                                        "backward_bound_ms", "backward_two_pass_bound_ms")},
+         "param_grad_rel_err": {k: rel[k] for k in ("dweight", "dbias")}},
+    ]
 
 
 def main() -> int:
@@ -2214,9 +2499,13 @@ def main() -> int:
     t0 = time.perf_counter()
     train_graphs = phase_train_graphs(ra, pipeline_mod, train_mod, data)
     log(f"train graphs: phase 12 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records += phase_bn(pipeline_mod, train_mod, data, train["counts"])
+    log(f"bn: phase 13 in {time.perf_counter() - t0:.1f} s")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
-        key = "nms" if r["name"] == "nms" else ("backward", size) if "backward" in r["name"] else size
+        key = {"nms": "nms", "bn": "bn", "bn_backward": ("backward", "bn")}.get(
+            r["name"], ("backward", size) if "backward" in r["name"] else size)
         r["drivers_launches"] = {name: c[key] for name, c in drivers["counts"].items()}
         r["cli_launches"] = {name: c[key] for name, c in cli["counts"].items()}
         r["parallel_launches"] = {name: c[key] if key in c else c[str(key)] for name, c in parallel["counts"].items()}

@@ -95,9 +95,12 @@ def stage_times(pipe, clip, runs: int) -> dict:
     return {k: float(np.median([r[k] for r in per_run])) for k in per_run[0]}
 
 
-def device_profile(run, top: int) -> dict:
+def device_profile(run, top: int, groups: dict | None = None) -> dict:
     """One call of `run` under torch.profiler: busy share of the window
-    (union of kernel intervals over the host-clock window) and top kernels."""
+    (union of kernel intervals over the host-clock window) and top kernels;
+    with `groups` ({group: name substrings}), the device ms and calls of
+    each group's kernels too, a kernel going to the first group one of
+    whose substrings its name holds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,7 +129,14 @@ def device_profile(run, top: int) -> dict:
         by_name[e.name][1] += 1
     total_dev = sum(us for us, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    grouped = {g: {"ms": 0.0, "calls": 0} for g in groups or {}}
+    for name, (us, n) in by_name.items():
+        g = next((g for g, subs in (groups or {}).items() if any(sub in name for sub in subs)), None)
+        if g is not None:
+            grouped[g]["ms"] += us / 1e3
+            grouped[g]["calls"] += n
     return {
+        "groups": grouped,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "busy_share": busy / wall_us,

@@ -13,10 +13,14 @@ blobs) and one `Trainer` on the card's default path, CUDA graphs
    clock (median over the runs): a graph replay calls no Python, so only
    the eager path splits by stage;
 2. runs one more step of each path, unwrapped, under `torch.profiler`: its
-   wall, the device's busy and idle share of it and the kernels with the
-   most device time;
+   wall, the device's busy and idle share of it, the kernels with the
+   most device time, and the device time of K6's kernels (train-mode
+   BatchNorm, `csrc/batch_norm.cu`) beside PyTorch's generic elementwise
+   and reduction kernels, which is what is left of the BN's plain path
+   and of everything else such kernels compute;
 3. times whole steps of both paths in turns (eager, graphs, graphs, eager,
-   ...), synchronized around each step: the median of each.
+   ...), synchronized around each step: the median of each; then each
+   path's peak allocated device memory over one step.
 
 Prints the card's name and power limit and one JSON line. Needs CUDA.
 """
@@ -46,6 +50,16 @@ STAGE_FUNCS = ("filter_proposals", "rpn_loss", "select_training_samples", "multi
                "fastrcnn_loss", "project_masks_on_boxes", "maskrcnn_loss")
 MODEL_METHODS = ("backbone_feats", "rpn_predict", "enhance", "box_predict", "mask_predict")
 RUNS, TOP, TURNS = 3, 20, 10
+# Kernels by name, in order of precedence: K6's own first (its reduce kernel's
+# name holds "reduce_kernel" too).
+KERNEL_GROUPS = {
+    "K6 reduce": ("bn_reduce_kernel",),
+    "K6 finalize": ("bn_finalize_",),
+    "K6 normalize": ("bn_normalize_kernel",),
+    "K6 apply": ("bn_apply_kernel",),
+    "generic elementwise": ("elementwise_kernel",),
+    "generic reduction": ("reduce_kernel",),
+}
 
 
 def training_window():
@@ -127,11 +141,13 @@ def main() -> int:
         print(f"stage {k:24s} {v * 1e3:9.2f} ms  {v / stages['total']:6.1%}")
     profiles = {}
     for name, step in paths.items():
-        profiles[name] = prof = device_profile(step, TOP)
+        profiles[name] = prof = device_profile(step, TOP, KERNEL_GROUPS)
         print(f"{name}: wall {prof.get('wall_ms')} ms, device busy {prof.get('device_busy_ms')} ms, "
               f"busy share {prof.get('busy_share')}, {prof.get('kernel_launches')} device kernels")
         for k in prof.get("top_kernels", []):
             print(f"  kernel {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
+        for g, v in prof.get("groups", {}).items():
+            print(f"  group {v['ms']:9.3f} ms x{v['calls']:<5d} {g}")
     turns = {name: [] for name in paths}
     for i in range(TURNS):
         for name in (paths if i % 2 == 0 else reversed(paths)):
@@ -142,13 +158,21 @@ def main() -> int:
             turns[name].append((time.perf_counter() - t0) * 1e3)
     step_ms = {name: float(np.median(v)) for name, v in turns.items()}
     print("whole steps in turns, median ms: " + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
+    peak_gib = {}
+    for name, step in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak_gib[name] = torch.cuda.max_memory_allocated() / 2**30
+    print("peak allocated device memory over one step, GiB: " + ", ".join(f"{k} {v:.3f}" for k, v in peak_gib.items()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"device": torch.cuda.get_device_name(0), "stages_ms": {k: v * 1e3 for k, v in stages.items()},
-                      "profiles": profiles, "step_ms": step_ms, "step_ms_runs": turns,
+                      "profiles": profiles, "step_ms": step_ms, "step_ms_runs": turns, "peak_gib": peak_gib,
                       "capture_s": {"gradient": [g.capture_s for g in runner.graphs.values()],
                                     "update": runner.update.capture_s}}))
     return 0

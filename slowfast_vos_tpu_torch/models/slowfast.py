@@ -21,10 +21,15 @@ Each (kt, k, k) valid-time conv runs as kt 2-D convolutions summed over the
 taps. In eval mode the BatchNorm (eps 1e-5) is folded into the conv's
 weights in f32. In train mode (the module's own `self.training`) it is
 flax's `nn.BatchNorm(use_running_average=False, momentum=0.9, dtype=f32)`
-(`slowfast.py:194-231`, `batch_norm_train`): statistics over the whole clip,
-as in the JAX package. The JAX module's merged stage-1 convolutions (s == f,
-and "variant G" for s != f, `slowfast.py:265-349`) are TPU rewrites and are
-not carried over: every pathway runs its own convolutions.
+(`slowfast.py:194-231`): statistics over the whole clip, as in the JAX
+package, through `ops/batch_norm.py::batch_norm_train_fused` with the
+following ReLU fused in. On CUDA tensors that is K6 (`csrc/batch_norm.cu`,
+forward and backward); on the CPU `batch_norm_train_plain` and
+`batch_norm_train_backward_plain` below, its plain versions
+(`batch_norm_train` is the forward alone, differentiable by autograd).
+The JAX module's merged stage-1 convolutions (s == f, and "variant G" for
+s != f, `slowfast.py:265-349`) are TPU rewrites and are not carried over:
+every pathway runs its own convolutions.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from slowfast_vos_tpu_torch.models.layers import nchw, nhwc
+from slowfast_vos_tpu_torch.ops import batch_norm as fused_bn
 
 
 def pathway_kernel_sizes(pathway_size: int) -> tuple[int, int, int]:
@@ -53,16 +59,42 @@ def fuse_kernel_size(slow_in: int, slow_kernel: int, fast_in: int, fast_kernel: 
     return out_fast - out_slow + 1, out_slow, out_fast
 
 
+class _Frames(torch.autograd.Function):
+    """x[start:stop] of a clip [T, C, H, W] whose gradient keeps x's memory
+    format. Autograd's own slice backward writes the gradient into a
+    contiguous (NCHW) zero tensor, which would reach K6's backward
+    (`ops/batch_norm.py`), which refuses it, as an NCHW gradient at every
+    BatchNorm of stages 1-2; the values are the same."""
+
+    @staticmethod
+    def forward(ctx, x, start, stop):
+        ctx.geometry = x.shape, x.dtype, x.device, start, stop
+        ctx.channels_last = x.is_contiguous(memory_format=torch.channels_last)
+        return x[start:stop]
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device, start, stop = ctx.geometry
+        layout = torch.channels_last if ctx.channels_last else torch.contiguous_format
+        out = torch.empty(shape, dtype=dtype, device=device, memory_format=layout)
+        out[:start].zero_()
+        out[stop:].zero_()
+        out[start:stop].copy_(g)
+        return out, None, None
+
+
 def temporal_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, padding) -> torch.Tensor:
     """Valid-time conv3d on an NCHW clip [T, Cin, H, W] -> [T - kt + 1, Cout,
     H, W] in x's dtype, as kt summed 2-D convs:
-    out[t] = sum_i conv2d(x[t + i], w[:, :, i]) + bias."""
+    out[t] = sum_i conv2d(x[t + i], w[:, :, i]) + bias. The frames are
+    taken by `_Frames`, so x's gradient keeps x's memory format."""
     w = weight.to(x.dtype)
     kt = w.shape[2]
     tout = x.shape[0] - kt + 1
     acc = None
     for i in range(kt):
-        o = F.conv2d(x[i : i + tout], w[:, :, i], padding=padding)
+        frames = x if kt == 1 else _Frames.apply(x, i, i + tout)
+        o = F.conv2d(frames, w[:, :, i], padding=padding)
         acc = o if acc is None else acc + o
     return acc if bias is None else acc + bias.to(x.dtype)[:, None, None]
 
@@ -77,6 +109,42 @@ def temporal_conv_bn(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> to
     return temporal_conv(x, w, b, conv.padding[1:])
 
 
+def batch_norm_statistics(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax's train-mode statistics of an NCHW clip [T, C, H, W] in f32
+    over T, H and W, as [4, C]: mean, var = max(E[x^2] - E[x]^2, 0)
+    (biased, `use_fast_variance`), invstd = rsqrt(var + eps), and k = 1.0
+    where E[x^2] - E[x]^2 >= 0 (the clamp passes its gradient), else 0.0.
+    Differentiable in its first three rows."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=(0, 2, 3))
+    raw = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+    var = raw.clamp(min=0.0)
+    return torch.stack([mean, var, torch.rsqrt(var + eps), (raw >= 0).to(torch.float32)])
+
+
+def batch_norm_normalize(x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         relu: bool = False) -> torch.Tensor:
+    """y = (x - mean) * (invstd * weight) + bias in f32, cast back to x's
+    dtype, then the ReLU where `relu` (on the cast value, as `F.relu`
+    after the cast)."""
+    mul = stats[2] * weight
+    y = (x.to(torch.float32) - stats[0][:, None, None]) * mul[:, None, None] + bias[:, None, None]
+    y = y.to(x.dtype)
+    return torch.relu(y) if relu else y
+
+
+def batch_norm_train_plain(
+    x: torch.Tensor, bn: nn.BatchNorm3d, momentum: float = 0.9, relu: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`batch_norm_train` with the ReLU where `relu`; returns (y, the
+    [4, C] statistics of `batch_norm_statistics`)."""
+    stats = batch_norm_statistics(x, bn.eps)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * stats[0])
+        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * stats[1])
+    return batch_norm_normalize(x, stats, bn.weight, bn.bias, relu), stats
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d, momentum: float = 0.9) -> torch.Tensor:
     """flax `nn.BatchNorm(use_running_average=False, momentum, epsilon=bn.eps,
     dtype=f32)` on an NCHW clip [T, C, H, W]: statistics in f32 over T, H
@@ -84,16 +152,46 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d, momentum: float = 0.9)
     updated in place as momentum * old + (1 - momentum) * batch with the
     biased variance, and the output cast back to x's dtype.
     `nn.BatchNorm3d`'s own training mode differs: it puts the unbiased
-    variance into the running update, with momentum in the other sense."""
-    xf = x.to(torch.float32)
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-    with torch.no_grad():
-        bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * mean)
-        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
-    return y.to(x.dtype)
+    variance into the running update, with momentum in the other sense.
+    The plain version of K6's forward (`ops/batch_norm.py`), differentiable
+    by autograd."""
+    return batch_norm_train_plain(x, bn, momentum)[0]
+
+
+def batch_norm_train_backward_plain(
+    dy: torch.Tensor,
+    x: torch.Tensor,
+    stats: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    relu: bool = False,
+    needs: tuple[bool, bool, bool] = (True, True, True),
+) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
+    """The closed-form gradient of `batch_norm_train_plain` (with the ReLU
+    where `relu`) given the forward's input x [T, C, H, W], its [4, C]
+    statistics and dy: (dx in x's dtype, dweight, dbias in f32), each
+    None where `needs` says so. In f32: dy' = dy where the forward's output
+    y > 0 (y recomputed from x by `batch_norm_normalize`) if `relu`, else
+    dy; S1 = sum dy', S2 = sum dy' * xhat with xhat = (x - mean) * invstd
+    (summed in f64, then rounded to f32: where dx's terms cancel, the
+    sums' rounding is all of dx's error);
+    dbias = S1, dweight = S2, dx = weight * invstd * (dy' - S1 / N -
+    xhat * S2 * k / N), k from the statistics: where the clamp held var at
+    0, the variance passes no gradient, as under autograd. The plain
+    version of K6's backward."""
+    mean, invstd, keep = stats[0], stats[2], stats[3]
+    dyf = dy.to(torch.float32)
+    if relu:
+        dyf = torch.where(batch_norm_normalize(x, stats, weight, bias) > 0, dyf, 0.0)
+    xhat = (x.to(torch.float32) - mean[:, None, None]) * invstd[:, None, None]
+    s1 = dyf.sum(dim=(0, 2, 3), dtype=torch.float64).to(torch.float32)
+    s2 = (dyf * xhat).sum(dim=(0, 2, 3), dtype=torch.float64).to(torch.float32)
+    dx = None
+    if needs[0]:
+        n = x.numel() // x.shape[1]
+        dx = (weight * invstd)[:, None, None] * ((dyf - (s1 / n)[:, None, None]) - xhat * (s2 * keep / n)[:, None, None])
+        dx = dx.to(x.dtype)
+    return dx, s2 if needs[1] else None, s1 if needs[2] else None
 
 
 class SlowFastTemporal(nn.Module):
@@ -125,10 +223,14 @@ class SlowFastTemporal(nn.Module):
         self.fast_conv3, self.bn_f3 = conv(32, 32, kf3), nn.BatchNorm3d(32)
         self.slow_conv3, self.bn_s3 = conv(256, 224, ks3), nn.BatchNorm3d(224)
 
-    def conv_bn(self, x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torch.Tensor:
+    def conv_bn(self, x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d, relu: bool = False) -> torch.Tensor:
+        """The conv and its BatchNorm, with the ReLU where `relu`: in eval
+        mode BN folded into the conv; in train mode K6
+        (`ops/batch_norm.py::batch_norm_train_fused`, the ReLU fused)."""
         if not self.training:
-            return temporal_conv_bn(x, conv, bn)
-        return batch_norm_train(temporal_conv(x, conv.weight, conv.bias, conv.padding[1:]), bn)
+            y = temporal_conv_bn(x, conv, bn)
+            return F.relu(y) if relu else y
+        return fused_bn.batch_norm_train_fused(temporal_conv(x, conv.weight, conv.bias, conv.padding[1:]), bn, relu)
 
     def forward(self, feats: torch.Tensor, pre_padded: bool = False) -> torch.Tensor:
         """feats: [T, H, W, C]. With `pre_padded=True` the input already
@@ -146,14 +248,13 @@ class SlowFastTemporal(nn.Module):
 
         fast_x = x
         slow_x = x[d : d + t + s - 1]
-        relu = F.relu
-        slow_x = relu(self.conv_bn(slow_x, self.slow_conv1, self.bn_s1))
-        fast_x = relu(self.conv_bn(fast_x, self.fast_conv1, self.bn_f1))
-        slow_x = torch.cat([slow_x, relu(self.conv_bn(fast_x, self.conv_f2s1, self.bn_f2s1))], dim=1)
+        slow_x = self.conv_bn(slow_x, self.slow_conv1, self.bn_s1, relu=True)
+        fast_x = self.conv_bn(fast_x, self.fast_conv1, self.bn_f1, relu=True)
+        slow_x = torch.cat([slow_x, self.conv_bn(fast_x, self.conv_f2s1, self.bn_f2s1, relu=True)], dim=1)
 
-        slow_x = relu(self.conv_bn(slow_x, self.slow_conv2, self.bn_s2))
-        fast_x = relu(self.conv_bn(fast_x, self.fast_conv2, self.bn_f2))
-        slow_x = torch.cat([slow_x, relu(self.conv_bn(fast_x, self.conv_f2s2, self.bn_f2s2))], dim=1)
+        slow_x = self.conv_bn(slow_x, self.slow_conv2, self.bn_s2, relu=True)
+        fast_x = self.conv_bn(fast_x, self.fast_conv2, self.bn_f2, relu=True)
+        slow_x = torch.cat([slow_x, self.conv_bn(fast_x, self.conv_f2s2, self.bn_f2s2, relu=True)], dim=1)
 
         # Stage 3: no relu (reference model.py:143-148).
         slow_x = self.conv_bn(slow_x, self.slow_conv3, self.bn_s3)

@@ -3,21 +3,28 @@ its backward against their plain versions, the level assignment on the
 card against the CPU's, the YUV 4:2:0 decode on the card against the CPU's,
 the blocked NMS sweep on the card against the fixpoint, the NMS kernel
 (K3) against the fixpoint, index for index, the superchunk's CUDA
-graphs (`models/graphs.py`) against the eager path, bit for bit, and the
-training step's (`train/graphs.py`) likewise.
+graphs (`models/graphs.py`) against the eager path, bit for bit, the
+training step's (`train/graphs.py`) likewise, and K6, SlowFast's
+train-mode BatchNorm (`ops/batch_norm.py`), against its plain versions.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
 Every test is marked `cuda` and skips where CUDA is absent."""
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from torch_roi_cases import boundary_rois, clustered_batch, cuda_device, edge_case_batch  # noqa: F401 (fixture)
 from slowfast_vos_tpu_torch.models.pipeline import Pipeline, build_pipeline, frame_detections, init_weights
+from slowfast_vos_tpu_torch.models.slowfast import (
+    batch_norm_normalize, batch_norm_train_backward_plain, batch_norm_train_plain,
+)
 from slowfast_vos_tpu_torch.models.transform import ImageTransform
+from slowfast_vos_tpu_torch.ops import batch_norm as pbn
 from slowfast_vos_tpu_torch.ops import nms as pnms
 from slowfast_vos_tpu_torch.ops import roi_align as pra
 from slowfast_vos_tpu_torch import data
@@ -561,9 +568,10 @@ def test_train_step_has_no_host_synchronize(cuda_device):
 
 @pytest.mark.cuda
 def test_train_graph_replays_count_their_kernel_launches(cuda_device):
-    """Each gradient graph records one launch of K1 and K5 at both pools and
-    one of K3 (the backward's from autograd's thread too), the update graph
-    none; a replayed step counts what an eager step counts."""
+    """Each gradient graph records one launch of K1 and K5 at both pools,
+    one of K3 and 32 of K6's forward and backward (the backward's from
+    autograd's thread too), the update graph none; a replayed step counts
+    what an eager step counts."""
     pipes, calls = train_setup()
     tr = Trainer(pipes[0])
     runner, batch = tr.graphs, calls[1][1]
@@ -574,7 +582,8 @@ def test_train_graph_replays_count_their_kernel_launches(cuda_device):
         tr.step(batch)
         counts.append({k: pra.launches[k] - v for k, v in before.items()})
     assert counts == [{k: 1 for k in TRAIN_KEYS}] * 4
-    assert [c.launches for c in runner.graphs.values()] == [{k: 1 for k in TRAIN_KEYS}]
+    # K6: 8 BatchNorms x 4 FPN levels, forward and backward.
+    assert [c.launches for c in runner.graphs.values()] == [{**{k: 1 for k in TRAIN_KEYS}, "bn": 32, ("backward", "bn"): 32}]
     assert runner.update.launches == {}
 
 
@@ -602,3 +611,209 @@ def test_train_graphs_recapture_after_a_parameter_is_replaced(cuda_device):
     tr.graphs = None
     want = tr.step(batch, draws)
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# K6, train-mode BatchNorm: (T, H, W) of the inputs, row counts (T*H*W)
+# that neither the partials nor a CTA's row lanes divide; the second spans
+# 511 partials of 132 rows.
+BN_SHAPES = ((3, 37, 29), (2, 131, 257))
+
+
+def bn_case(shape, c, dtype, seed, device="cuda"):
+    """x [T, C, H, W] channels-last with per-channel means U(-1, 1) and
+    spreads U(0.5, 2), channel 0 constant 0.1 (E[x^2] - E[x]^2 is rounding
+    noise there, clamped where negative) and channel 1 constant 0.75
+    (exactly 0); a BatchNorm3d with random affine and running statistics;
+    and dy like x."""
+    rng = np.random.default_rng(seed)
+    t, h, w = shape
+    mean, std = rng.uniform(-1, 1, c), rng.uniform(0.5, 2, c)
+    x = mean[:, None, None] + std[:, None, None] * rng.standard_normal((t, c, h, w))
+    x[:, 0], x[:, 1] = 0.1, 0.75
+    bn = torch.nn.BatchNorm3d(c)
+    with torch.no_grad():
+        for p, lo, hi in ((bn.weight, 0.5, 1.5), (bn.bias, -0.5, 0.5), (bn.running_mean, -1, 1), (bn.running_var, 0.5, 2)):
+            p.copy_(torch.from_numpy(rng.uniform(lo, hi, c)))
+    as_x = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype).contiguous(memory_format=torch.channels_last)  # noqa: E731
+    return as_x(x), bn.to(device), as_x(rng.standard_normal((t, c, h, w)))
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each element's magnitude (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0**-126))) - 7)
+
+
+def assert_bn_close(got, want, dtype, what):
+    """f32: within 1e-5 of the tensor's max |want|. bf16: within one bf16
+    ulp at the larger magnitude, plus 1e-6 of the max: the two sides'
+    statistics differ in summation order by ~1e-7 relative, which moves an
+    element's f32 value by ~1e-7 of the tensor's scale; that moves its
+    rounding to bf16 by at most one ulp, or, where the value lies that
+    close to 0 (the ReLU, a tiny magnitude), by that distance."""
+    got, want = got.detach().float(), want.detach().float()
+    scale = float(want.abs().max())
+    if dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * scale, f"{what}: max abs err {err:.3e} against {scale:.3e}"
+    else:
+        excess = (got - want).abs() - bf16_ulp(torch.maximum(got.abs(), want.abs())) - 1e-6 * scale
+        assert float(excess.max()) <= 0, f"{what}: {int((excess > 0).sum())} elements beyond one ulp"
+
+
+def rel_to_max(got, want) -> float:
+    return float((got - want).detach().abs().max() / want.detach().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("c", [32, 64, 192, 224])
+def test_batch_norm_kernels_match_plain_versions(cuda_device, c, relu, dtype):
+    """K6 against its plain versions, each step on the same inputs: the
+    statistics (mean, var) and the running statistics updated in place
+    against `batch_norm_train_plain` on a copy of the module; y against
+    `batch_norm_normalize` of the kernel's own statistics (a constant
+    channel's invstd, 1/sqrt(eps), turns the plain f32 mean's rounding
+    into ~1e-4 of y there, so the whole forward is not the yardstick of
+    the normalize); dx, dweight and dbias against
+    `batch_norm_train_backward_plain` on the kernel's statistics too, so
+    both recompute the ReLU's mask alike, with k forced to 0 at channel 2
+    (the clamp's branch, where the variance passes no gradient: random
+    data reaches it only through rounding). Tolerances: `assert_bn_close` for
+    y and dx; mean, var and the running statistics rel 1e-5 of each
+    tensor's max; dweight and dbias rel 1e-4 (sums of N products in two
+    orders)."""
+    for i, shape in enumerate(BN_SHAPES):
+        x, bn, dy = bn_case(shape, c, dtype, seed=10 * c + i)
+        plain = copy.deepcopy(bn)
+        y, stats = pbn.batch_norm_forward_cuda(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, 0.9, relu)
+        _, want_stats = batch_norm_train_plain(x, plain, 0.9, relu)
+        want_y = batch_norm_normalize(x, stats, bn.weight, bn.bias, relu)
+        assert y.is_contiguous(memory_format=torch.channels_last) and y.dtype == dtype
+        assert_bn_close(y, want_y, dtype, f"y {shape}")
+        for row, name in ((0, "mean"), (1, "var")):
+            assert rel_to_max(stats[row], want_stats[row]) <= 1e-5, name
+        for name in ("running_mean", "running_var"):
+            assert rel_to_max(getattr(bn, name), getattr(plain, name)) <= 1e-5, name
+        stats[3, 2] = 0.0
+        dx, dw, db = pbn.batch_norm_backward_cuda(dy, x, stats, bn.weight, bn.bias, relu)
+        want_dx, want_dw, want_db = batch_norm_train_backward_plain(dy, x, stats, bn.weight, bn.bias, relu)
+        assert dx.is_contiguous(memory_format=torch.channels_last) and dx.dtype == dtype
+        assert_bn_close(dx, want_dx, dtype, f"dx {shape}")
+        assert rel_to_max(dw, want_dw) <= 1e-4 and rel_to_max(db, want_db) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernel_statistics_under_cancellation(cuda_device):
+    """Channels of mean 8 and spread 0.25 in f32, where E[x^2] - E[x]^2
+    cancels three decimal digits: the kernel's mean and var against the
+    same formula in float64 on the CPU, within 1e-6 of E[x^2] (16 f32 ulps
+    of the terms whose difference var is); the plain version on the card
+    is held to the same, as the yardstick of what f32 sums give."""
+    rng = np.random.default_rng(40)
+    x64 = 8 + 0.25 * rng.standard_normal((2, 64, 131, 257))
+    x = torch.from_numpy(x64).float().to(cuda_device).contiguous(memory_format=torch.channels_last)
+    xe = x.double().cpu()
+    mean = xe.mean(dim=(0, 2, 3))
+    var = ((xe * xe).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0)
+    ex2 = (xe * xe).mean(dim=(0, 2, 3))
+    bn = torch.nn.BatchNorm3d(64).to(cuda_device)
+    _, stats = pbn.batch_norm_forward_cuda(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+    _, plain = batch_norm_train_plain(x, torch.nn.BatchNorm3d(64).to(cuda_device))
+    for name, s in (("kernel", stats), ("plain", plain)):
+        s = s.double().cpu()
+        assert float(((s[0] - mean).abs() / ex2).max()) <= 1e-6, name
+        assert float(((s[1] - var).abs() / ex2).max()) <= 1e-6, name
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_repeat_bitwise_and_under_a_graph(cuda_device):
+    """Forward and backward at the larger shape in bf16 with the ReLU: two
+    calls from the same running statistics equal bit for bit, and a CUDA
+    graph of both replays them bit for bit."""
+    x, bn, dy = bn_case(BN_SHAPES[1], 192, torch.bfloat16, seed=41)
+    start = [bn.running_mean.clone(), bn.running_var.clone()]
+
+    def run():
+        bn.running_mean.copy_(start[0])
+        bn.running_var.copy_(start[1])
+        y, stats = pbn.batch_norm_forward_cuda(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, 0.9, True)
+        return [y, stats, bn.running_mean.clone(), bn.running_var.clone(),
+                *pbn.batch_norm_backward_cuda(dy, x, stats, bn.weight, bn.bias, True)]
+
+    want, again = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(want, again))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_take_channel_slices_and_partial_gradients(cuda_device):
+    """dy as a channel slice of a wider channels-last tensor (what the
+    backward of SlowFast's channel `cat` gives) equals dy made contiguous,
+    bit for bit; asking for dx alone, or for dweight and dbias alone, gives
+    the same tensors as asking for all three."""
+    x, bn, _ = bn_case(BN_SHAPES[0], 64, torch.bfloat16, seed=42)
+    wide = torch.randn((x.shape[0], 256, *x.shape[2:]), device=cuda_device).to(torch.bfloat16)
+    wide = wide.contiguous(memory_format=torch.channels_last)
+    dy = wide[:, 192:]
+    assert pbn.row_stride(dy) == 256 and not dy.is_contiguous(memory_format=torch.channels_last)
+    _, stats = pbn.batch_norm_forward_cuda(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, 0.9, True)
+    full = pbn.batch_norm_backward_cuda(dy, x, stats, bn.weight, bn.bias, True)
+    dense = pbn.batch_norm_backward_cuda(dy.contiguous(memory_format=torch.channels_last), x, stats, bn.weight, bn.bias, True)
+    assert all(torch.equal(a, b) for a, b in zip(full, dense))
+    dx_only = pbn.batch_norm_backward_cuda(dy, x, stats, bn.weight, bn.bias, True, (True, False, False))
+    params_only = pbn.batch_norm_backward_cuda(dy, x, stats, bn.weight, bn.bias, True, (False, True, True))
+    assert torch.equal(dx_only[0], full[0]) and dx_only[1] is None and dx_only[2] is None
+    assert params_only[0] is None and torch.equal(params_only[1], full[1]) and torch.equal(params_only[2], full[2])
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_refuse_other_layouts(cuda_device):
+    """An x that is not channels-last contiguous raises, and launches
+    nothing; so does a dy whose rows are not 16-byte vectors of channels,
+    also when autograd hands it to the fused function's backward."""
+    x, bn, dy = bn_case(BN_SHAPES[0], 32, torch.float32, seed=43)
+    before = dict(pbn.launches)
+    with pytest.raises(ValueError, match="channels-last"):
+        pbn.batch_norm_forward_cuda(x.contiguous(), bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+    with pytest.raises(ValueError, match="channels-last"):
+        pbn.batch_norm_train_fused(x.contiguous(), bn, relu=True)
+    _, stats = batch_norm_train_plain(x, copy.deepcopy(bn))
+    with pytest.raises(ValueError, match="channel slice"):
+        pbn.batch_norm_backward_cuda(dy.contiguous(), x, stats, bn.weight, bn.bias)
+    y = pbn.batch_norm_train_fused(x.requires_grad_(True), bn, relu=True)
+    with pytest.raises(ValueError, match="channel slice"):
+        y.backward(dy.contiguous())
+    assert dict(pbn.launches) == {**before, "bn": before.get("bn", 0) + 1}
+
+
+@pytest.mark.cuda
+def test_batch_norm_path_has_no_host_synchronize(cuda_device):
+    """`batch_norm_train_fused` forward and backward through autograd, the
+    gradient a channel slice, under the sync debug mode "error"."""
+    x, bn, other = bn_case(BN_SHAPES[1], 192, torch.bfloat16, seed=44)
+    x.requires_grad_(True)
+
+    def step():
+        y = pbn.batch_norm_train_fused(x, bn, relu=True)
+        torch.cat([y, other[:, :64]], dim=1).float().square().sum().backward()
+
+    step()  # builds the library outside the checked region
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert x.grad is not None and bn.weight.grad is not None
