@@ -144,17 +144,22 @@ Phases, each fatal on failure:
              phase 3's own inputs: one eager step of phase 3's set-up keeps
              all 32 calls (8 BatchNorms x 4 FPN levels, bf16), their inputs
              and the gradients their outputs receive (and those gradients'
-             layouts); per call the forward kernel against the plain forward
+             layouts); each call's bytes and its launch plan each way
+             (`ops/batch_norm.py::plan`: on-chip or stream route, grid,
+             slots); per call the forward kernel against the plain forward
              and float64 statistics, the normalize and the backward kernel
-             against their plain versions on the same inputs; device times
-             of the kernels, the plain versions and `F.batch_norm`
-             (forward and backward) per call at P2's `bn_s1` [4, 192, 192,
-             336] and summed over the step, against the bounds.
+             against their plain versions on the same inputs; one device
+             kernel a call each way, by name (torch.profiler over the 32
+             calls); device times of the kernels, the plain versions and
+             `F.batch_norm` (forward and backward) per call at P2's `bn_s1`
+             [4, 192, 192, 336] and summed over the step, against the
+             bounds.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, where CUDA is absent or any phase fails.
 """
+import collections
 import contextlib
 import functools
 import json
@@ -2206,9 +2211,8 @@ def osvos_memory(train_mod, cell) -> list:
 # Phase 13: K6, SlowFast's train-mode BatchNorm, on phase 3's own inputs.
 BN_OPS_FORWARD = 7  # f32 operations an element: x and x*x summed (3), (x - mean) * mul + beta (3), the ReLU (1)
 BN_OPS_BACKWARD = 10  # xhat (2), dy' and dy' * xhat summed (3), the apply's two differences, product and scale (5)
-# K6's device kernels by name: the forward's three, then the backward's.
-BN_KERNELS = ("bn_reduce_kernel", "bn_finalize_forward_kernel", "bn_normalize_kernel",
-              "bn_reduce_kernel", "bn_finalize_backward_kernel", "bn_apply_kernel")
+# K6's device kernels by name: one a call each way.
+BN_KERNELS = ("bn_forward_kernel", "bn_backward_kernel")
 
 
 @contextlib.contextmanager
@@ -2216,8 +2220,10 @@ def keeping_bn_calls():
     """Within the block, every `batch_norm_train_fused` call keeps copies
     of its input, the module (by reference), its parameters and running
     statistics before the call, its ReLU flag, and the gradient its output
-    receives in the backward (as autograd hands it over: its row stride is
-    kept, the copy is channels-last)."""
+    receives in the backward: "dy" channels-last, and "dy_given" laid out
+    as autograd hands it over (a channel slice of a wider channels-last
+    tensor where it was one, at its channel offset), which the kernels are
+    held and timed on."""
     from slowfast_vos_tpu_torch.ops import batch_norm as fused_bn
 
     orig = fused_bn.batch_norm_train_fused
@@ -2229,8 +2235,17 @@ def keeping_bn_calls():
         y = orig(x, bn, relu, momentum)
 
         def hook(g):
-            call["dy_row_stride"], call["dy_strides"] = fused_bn.row_stride(g), g.stride()
+            stride = fused_bn.row_stride(g)
+            call["dy_row_stride"], call["dy_strides"] = stride, g.stride()
             call["dy"] = g.detach().contiguous(memory_format=torch.channels_last)
+            call["dy_given"] = call["dy"]
+            if stride is not None and stride != g.shape[1]:  # a channel slice, at its own channel offset
+                t, ch, h, w = g.shape
+                off = g.storage_offset() % stride
+                wide = torch.empty((t, stride, h, w), dtype=g.dtype, device=g.device,
+                                   memory_format=torch.channels_last)
+                call["dy_given"] = wide[:, off:off + ch]
+                call["dy_given"].copy_(g.detach())
 
         if y.requires_grad:
             y.register_hook(hook)
@@ -2267,8 +2282,9 @@ def bn_bounds(x: torch.Tensor) -> dict:
     reads x and the [C] parameters and running statistics once and writes
     y, the [4, C] statistics and the running statistics once; the backward
     reads dy, x, the statistics, weight and bias once and writes dx, dweight
-    and dbias once. Also the two-pass design's own least bytes: x read twice
-    in the forward, x and dy twice in the backward."""
+    and dbias once. Also the least time of the three-kernel design K6 had
+    before its one-launch redesign (commit 3c9e5ba), which read x twice in
+    the forward and x and dy twice in the backward."""
     c, rows, elem = x.shape[1], x.numel() // x.shape[1], x.element_size()
     plane = rows * c * elem
     fwd_bytes, bwd_bytes = 2 * plane + 14 * c * 4, 3 * plane + 8 * c * 4
@@ -2295,6 +2311,40 @@ def library_batch_norm(call: dict):
     y = fwd()
     bwd = lambda: torch.autograd.grad(y, (x, w, b), call["dy"], retain_graph=True)  # noqa: E731
     return fwd, bwd
+
+
+def bn_device_kernels(fused_bn, calls: list) -> dict:
+    """The device kernels by name that one forward and one backward call of
+    K6 on each kept call run (torch.profiler around the whole set each way).
+    The profiler can lose device events, so a trace with fewer kernels than
+    calls is taken again, up to five times; one with more, or with another
+    kernel, stands."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    running = [(c["running_mean"].clone(), c["running_var"].clone()) for c in calls]
+    stats = [fused_bn.batch_norm_forward_cuda(c["x"], c["weight"], c["bias"], *r, c["bn"].eps, 0.9, c["relu"])[1]
+             for c, r in zip(calls, running)]
+    runs = {
+        "forward": lambda: [fused_bn.batch_norm_forward_cuda(c["x"], c["weight"], c["bias"], *r, c["bn"].eps, 0.9,
+                                                             c["relu"]) for c, r in zip(calls, running)],
+        "backward": lambda: [fused_bn.batch_norm_backward_cuda(c["dy_given"], c["x"], s, c["weight"], c["bias"],
+                                                               c["relu"]) for c, s in zip(calls, stats)],
+    }
+    out = {}
+    for (d, fn), name in zip(runs.items(), BN_KERNELS):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts = collections.Counter(
+                next((n for n in BN_KERNELS if n in e.name), e.name) for e in prof.events()
+                if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")))
+            if counts == {name: len(calls)} or sum(counts.values()) > len(calls):
+                break
+        out[d] = dict(counts)
+    return out
 
 
 def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
@@ -2329,6 +2379,16 @@ def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
         f"the gradients' layouts at P2 (name, C, row stride or None, strides): "
         + "; ".join(f"{names[id(c['bn'])]} {c['x'].shape[1]} {c['dy_row_stride']} {c['dy_strides']}" for c in calls[:8])
         + " (a row stride above C: a channel slice from the backward of a cat)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in calls:
+        x = c["x"]
+        rows, ch, bf16 = x.numel() // x.shape[1], x.shape[1], x.dtype == torch.bfloat16
+        c["plans"] = {"forward": fused_bn.plan(rows, ch, bf16, None, sms),
+                      "backward": fused_bn.plan(rows, ch, bf16, c["dy_row_stride"], sms)}
+    log("bn: each call's bytes (x) and plan each way (route, grid, slots of a CTA's tiles): " + "; ".join(
+        f"{names[id(c['bn'])]} {list(c['x'].shape)} {c['x'].numel() * c['x'].element_size() / 1e6:.2f} MB "
+        + ", ".join(f"{d} {p.route} {p.grid} {p.slots}/{-(-p.tiles // p.grid)}" for d, p in c["plans"].items())
+        for c in calls))
     err = {"y": 0.0, "dx": 0.0}
     share = {"y": 0.0, "dx": 0.0}
     rel = {"mean": 0.0, "var": 0.0, "running": 0.0, "dweight": 0.0, "dbias": 0.0}
@@ -2355,7 +2415,7 @@ def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
             rel["mean"] = max(rel["mean"], bn_rel(stats[0], want_stats[0]))
             rel["var"] = max(rel["var"], float((stats[1] - want_stats[1]).abs().max() / ex2.max()))
             rel["running"] = max(rel["running"], bn_rel(rm, plain.running_mean), bn_rel(rv, plain.running_var))
-            dx, dw, db = fused_bn.batch_norm_backward_cuda(c["dy"], x, stats, w, b, relu)
+            dx, dw, db = fused_bn.batch_norm_backward_cuda(c["dy_given"], x, stats, w, b, relu)
             want_dx, want_dw, want_db = sf.batch_norm_train_backward_plain(c["dy"], x, stats, w, b, relu)
             e, sh = bn_close(dx, want_dx)
             err["dx"], share["dx"] = max(err["dx"], e), max(share["dx"], sh)
@@ -2378,7 +2438,7 @@ def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
         with torch.no_grad():
             out = {
                 "ms": device_ms(lambda: fused_bn.batch_norm_forward_cuda(x, w, b, rm, rv, c["bn"].eps, 0.9, relu)),
-                "backward_ms": device_ms(lambda: fused_bn.batch_norm_backward_cuda(c["dy"], x, stats, w, b, relu)),
+                "backward_ms": device_ms(lambda: fused_bn.batch_norm_backward_cuda(c["dy_given"], x, stats, w, b, relu)),
                 "plain_ms": device_ms(lambda: sf.batch_norm_train_plain(x, plain, 0.9, relu)),
                 "plain_backward_ms": device_ms(
                     lambda: sf.batch_norm_train_backward_plain(c["dy"], x, stats, w, b, relu)),
@@ -2390,7 +2450,9 @@ def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
     for c in calls:
         t = timings(c)
         t.update({"name": names[id(c["bn"])], "shape": list(c["x"].shape), "relu": c["relu"],
-                  "bounds": bn_bounds(c["x"])})
+                  "bounds": bn_bounds(c["x"]), "bytes": c["x"].numel() * c["x"].element_size(),
+                  "plan": {d: {"route": p.route, "grid": p.grid, "slots": p.slots, "tiles": p.tiles}
+                           for d, p in c["plans"].items()}})
         per_call.append(t)
     big = max(range(len(calls)), key=lambda i: calls[i]["x"].numel())
     top = per_call[big]
@@ -2398,12 +2460,19 @@ def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
     rm, rv = c["running_mean"].clone(), c["running_var"].clone()
     _, stats = fused_bn.batch_norm_forward_cuda(c["x"], c["weight"], c["bias"], rm, rv, c["bn"].eps, 0.9, c["relu"])
     top["kernels_ms"], _ = kernel_ms_by_name(lambda: fused_bn.batch_norm_forward_cuda(
-        c["x"], c["weight"], c["bias"], rm, rv, c["bn"].eps, 0.9, c["relu"]), BN_KERNELS[:3])
+        c["x"], c["weight"], c["bias"], rm, rv, c["bn"].eps, 0.9, c["relu"]), BN_KERNELS[:1])
     top["backward_kernels_ms"], _ = kernel_ms_by_name(lambda: fused_bn.batch_norm_backward_cuda(
-        c["dy"], c["x"], stats, c["weight"], c["bias"], c["relu"]), BN_KERNELS[3:])
+        c["dy_given"], c["x"], stats, c["weight"], c["bias"], c["relu"]), BN_KERNELS[1:])
     log(f"time: bn {top['name']} by kernel (torch.profiler), forward: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in top["kernels_ms"].items()) + "; backward: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in top["backward_kernels_ms"].items()))
+    device_kernels = bn_device_kernels(fused_bn, calls)
+    log("bn: device kernels over the step's calls, by name (torch.profiler): forward "
+        + ", ".join(f"{k} {v}" for k, v in device_kernels["forward"].items()) + "; backward "
+        + ", ".join(f"{k} {v}" for k, v in device_kernels["backward"].items()))
+    for d, name in zip(("forward", "backward"), BN_KERNELS):
+        check(device_kernels[d] == {name: len(calls)},
+              f"bn: {len(calls)} {d} calls ran {device_kernels[d]} on the device; one {name} a call expected")
     total = {k: sum(t[k] for t in per_call) for k in ("ms", "backward_ms", "plain_ms", "plain_backward_ms",
                                                       "library_ms", "library_backward_ms")}
     for d in ("forward", "backward"):

@@ -50,13 +50,11 @@ STAGE_FUNCS = ("filter_proposals", "rpn_loss", "select_training_samples", "multi
                "fastrcnn_loss", "project_masks_on_boxes", "maskrcnn_loss")
 MODEL_METHODS = ("backbone_feats", "rpn_predict", "enhance", "box_predict", "mask_predict")
 RUNS, TOP, TURNS = 3, 20, 10
-# Kernels by name, in order of precedence: K6's own first (its reduce kernel's
-# name holds "reduce_kernel" too).
+# Kernels by name, in order of precedence: K6's own first (one kernel a call
+# each way).
 KERNEL_GROUPS = {
-    "K6 reduce": ("bn_reduce_kernel",),
-    "K6 finalize": ("bn_finalize_",),
-    "K6 normalize": ("bn_normalize_kernel",),
-    "K6 apply": ("bn_apply_kernel",),
+    "K6 forward": ("bn_forward_kernel",),
+    "K6 backward": ("bn_backward_kernel",),
     "generic elementwise": ("elementwise_kernel",),
     "generic reduction": ("reduce_kernel",),
 }

@@ -19,7 +19,9 @@ the card runs the kernels through:
   (`batch_norm_train` and a separate ReLU), outputs and running statistics
   bit for bit, gradients within 1e-5 of each tensor's max; and every BN
   input channels-last contiguous, as the card's kernels demand;
-* the wrappers' shape functions and refusals.
+* K6's launch plan (`plan`: every row once, in a fixed order, within the
+  shared-memory cap, each of a full-width step's 32 calls on its route),
+  the wrappers' shape functions and refusals.
 
 The kernels themselves are held against these plain versions on the card:
 `tests/test_torch_cuda.py -k batch_norm` and `chip_smoke.py` phase 13."""
@@ -239,23 +241,98 @@ def test_slowfast_train_mode_fused_equals_unfused(slow, fast, monkeypatch):
             assert rel_err(fgrads[k], g) <= CLOSED_FORM_RTOL, k
 
 
-def test_partition_covers_rows_in_bounded_partials():
-    """Every row in exactly one partial, at most MAX_PARTIALS partials of at
-    least MIN_ROWS_PER_PARTIAL rows (the last may be short), and a function
-    of the row count alone; at the largest call of a full-width step
-    (P2 [4, 192, 192, 336]: 258,048 rows) 512 partials of 504 rows."""
-    for rows in (1, 63, 64, 65, 3219, 32768, 32769, 67334, 258048, 10**7):
-        per, parts = pbn.partition(rows)
-        assert per >= pbn.MIN_ROWS_PER_PARTIAL and parts <= pbn.MAX_PARTIALS
-        assert (parts - 1) * per < rows <= parts * per
-    assert pbn.partition(258048) == (504, 512)
+PLAN_CASES = [  # (rows, C, bf16): tiny, ragged, a full-width step's largest, f32, C above 256
+    (1, 32, True), (63, 64, True), (3219, 192, True), (67334, 224, True), (258048, 192, True),
+    (10**7, 32, True), (105, 32, False), (3219, 224, False), (5000, 1024, False), (777, 264, True)]
+
+
+@pytest.mark.parametrize("rows,c,bf16", PLAN_CASES)
+def test_partition_covers_rows_in_bounded_partials(rows, c, bf16):
+    """`plan`, forward and backward: every row in exactly one tile of
+    exactly one CTA, a CTA's tiles dealt in turn (b, b + grid, ...: the
+    order its partial sums them in), at most one CTA per SM and no more
+    CTAs than tiles, the tiles as even as integers allow (counts differ by
+    at most one), a tile at most MAX_TILE_ROWS rows, 1-64 slots, the route
+    "on-chip" exactly where each CTA's tiles fit its slots."""
+    for dy_stride in (None, c):
+        p = pbn.plan(rows, c, bf16, dy_stride, 132)
+        assert 1 <= p.grid <= min(132, p.tiles)
+        assert 1 <= p.tile_rows <= pbn.MAX_TILE_ROWS and p.tiles == -(-rows // p.tile_rows)
+        owned = [list(p.cta_tiles(b)) for b in range(p.grid)]
+        assert sorted(t for ts in owned for t in ts) == list(range(p.tiles))
+        assert (p.tiles - 1) * p.tile_rows < rows <= p.tiles * p.tile_rows  # tile t: rows [t R, min(N, (t + 1) R))
+        counts = [len(ts) for ts in owned]
+        assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+        assert 1 <= p.slots <= min(pbn.MAX_SLOTS, max(counts))
+        assert p.route == ("on-chip" if max(counts) <= p.slots else "stream")
+
+
+@pytest.mark.parametrize("rows,c,bf16", PLAN_CASES)
+def test_plan_requests_at_most_the_shared_memory_cap(rows, c, bf16):
+    """A CTA requests at most 232,448 B of dynamic shared memory (sm_90's
+    cap), counted as `csrc/batch_norm.cu::layout` counts it: the slots (x,
+    and dy in the backward), the lanes' f32 sums (room for the [3, C]
+    coefficients, where that is more), one 8-byte mbarrier a slot; a
+    stream-route plan fills the cap as far as whole slots go."""
+    for dy_stride in (None, c):
+        p = pbn.plan(rows, c, bf16, dy_stride, 132)
+        tensors = 1 if dy_stride is None else 2
+        elem = 2 if bf16 else 4
+        tile = -(-c * elem * p.tile_rows // 128) * 128
+        lanes = 256 // (c * elem // 16)
+        fixed = max(2 * lanes, 3) * c * 4
+        assert p.smem == p.slots * (tile * tensors + 8) + fixed
+        assert p.smem <= 232_448
+        if p.route == "stream" and p.slots < pbn.MAX_SLOTS:
+            assert p.smem + tile * tensors + 8 > 232_448
+
+
+def test_plan_is_a_function_of_its_inputs():
+    """The same inputs give the same plan, also computed afresh; another
+    SM count or direction may give another."""
+    cases = [(rows, c, bf16, d) for rows, c, bf16 in PLAN_CASES for d in (None, c)]
+    first = [pbn.plan(*k, 132) for k in cases]
+    pbn.plan.cache_clear()
+    assert [pbn.plan(*k, 132) for k in cases] == first
+    assert pbn.plan(258048, 192, True, None, 132) != pbn.plan(258048, 192, True, None, 114)
+
+
+# A full-width training step's 32 K6 calls (SlowFast 3-3 on the FPN of a
+# 768x1344 canvas, bf16): (name, C, T) at P2-P5, and the route each
+# direction's plan gives it on a 132-SM H100. Forward: a CTA keeps 13 tiles
+# of ~15-16 KB (about 26 MB over the grid), so the four P2 calls above that
+# stream; backward: x and dy share the slots (6 tiles of each, about 12 MB
+# a tensor), so P2's calls from 16.5 MB up and P3's three 192/224-channel
+# calls stream too.
+STEP_BNS = (("bn_s1", 192, 4), ("bn_f1", 32, 4), ("bn_f2s1", 64, 4), ("bn_s2", 192, 3),
+            ("bn_f2", 32, 3), ("bn_f2s2", 64, 3), ("bn_s3", 224, 2), ("bn_f3", 32, 2))
+STEP_LEVELS = {"P2": (192, 336), "P3": (96, 168), "P4": (48, 84), "P5": (24, 42)}
+STREAM_FORWARD = {("P2", n) for n in ("bn_s1", "bn_f2s1", "bn_s2", "bn_s3")}
+STREAM_BACKWARD = STREAM_FORWARD | {("P2", "bn_f1"), ("P2", "bn_f2s2"), ("P3", "bn_s1"), ("P3", "bn_s2"),
+                                    ("P3", "bn_s3")}
+
+
+@pytest.mark.parametrize("level", list(STEP_LEVELS))
+@pytest.mark.parametrize("name,c,frames", STEP_BNS)
+def test_plan_routes_of_a_full_width_step(level, name, c, frames):
+    """Each of the step's 32 calls gets its expected route each way with
+    sm_count=132: on-chip (x, and dy, read from device memory once), or
+    stream (the elementwise pass reads the earlier tiles again, most
+    recently read first)."""
+    h, w = STEP_LEVELS[level]
+    rows = frames * h * w
+    fwd, bwd = pbn.plan(rows, c, True, None, 132), pbn.plan(rows, c, True, c, 132)
+    assert fwd.route == ("stream" if (level, name) in STREAM_FORWARD else "on-chip")
+    assert bwd.route == ("stream" if (level, name) in STREAM_BACKWARD else "on-chip")
+    assert max(fwd.smem, bwd.smem) <= 232_448
 
 
 def test_row_stride_reads_channels_last_rows_and_channel_slices():
     """`row_stride`: C for a channels-last tensor, the parent's C for a
     channel slice of one, None for NCHW, a channel stride other than 1, an
-    expanded tensor or rows that are not 16-byte vectors; size-1
-    dimensions of any stride are accepted."""
+    expanded tensor, rows that are not 16-byte vectors or a slice of rows
+    wider than a TMA box spans (MAX_BOX_ROW_BYTES: f32 C 520 is 2080 bytes,
+    bf16 C 520 fits); size-1 dimensions of any stride are accepted."""
     x = torch.randn(2, 64, 5, 7).contiguous(memory_format=torch.channels_last)
     wide = torch.randn(2, 256, 5, 7).contiguous(memory_format=torch.channels_last)
     assert pbn.row_stride(x) == 64
@@ -266,6 +343,12 @@ def test_row_stride_reads_channels_last_rows_and_channel_slices():
     assert pbn.row_stride(wide[:, 3:35]) is None  # rows 12 bytes off a 16-byte boundary
     one_row = torch.randn(1, 64, 1, 1)
     assert pbn.row_stride(one_row) == 64
+    wider = torch.randn(2, 528, 3, 5).contiguous(memory_format=torch.channels_last)
+    assert 520 * 4 > pbn.MAX_BOX_ROW_BYTES >= 520 * 2
+    assert pbn.row_stride(wider[:, 8:]) is None
+    assert pbn.row_stride(wider.to(torch.bfloat16)[:, 8:]) == 528
+    assert pbn.row_stride(wider[:, 8:].contiguous(memory_format=torch.channels_last)) == 520
+
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_other_devices():

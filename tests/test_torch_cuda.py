@@ -614,9 +614,28 @@ def test_train_graphs_recapture_after_a_parameter_is_replaced(cuda_device):
 
 
 # K6, train-mode BatchNorm: (T, H, W) of the inputs, row counts (T*H*W)
-# that neither the partials nor a CTA's row lanes divide; the second spans
-# 511 partials of 132 rows.
+# that no tile of `pbn.plan` divides at any C and dtype tested; the second
+# spans the card's 132 SMs (the backward's slots overflow at C 192 and 224).
 BN_SHAPES = ((3, 37, 29), (2, 131, 257))
+BN_ROUTES = ("planned", "stream")  # the plan as it is; one slot a CTA, which streams any CTA of 2+ tiles
+
+
+@pytest.fixture
+def bn_route(request, monkeypatch):
+    """`request.param` of BN_ROUTES: "stream" sets `pbn.MAX_SLOTS` to 1 for
+    the test, so the elementwise pass reads all but a CTA's last tile again
+    (the planned stream route keeps 6-13); the plans made meanwhile are
+    dropped after it."""
+    if request.param == "stream":
+        monkeypatch.setattr(pbn, "MAX_SLOTS", 1)
+        pbn.plan.cache_clear()
+    yield request.param
+    pbn.plan.cache_clear()
+
+
+def bn_plan(x, dy_stride=None):
+    return pbn.plan(x.numel() // x.shape[1], x.shape[1], x.dtype == torch.bfloat16, dy_stride,
+                    torch.cuda.get_device_properties(x.device).multi_processor_count)
 
 
 def bn_case(shape, c, dtype, seed, device="cuda"):
@@ -665,10 +684,11 @@ def rel_to_max(got, want) -> float:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bn_route", BN_ROUTES, indirect=True)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("c", [32, 64, 192, 224])
-def test_batch_norm_kernels_match_plain_versions(cuda_device, c, relu, dtype):
+def test_batch_norm_kernels_match_plain_versions(cuda_device, c, relu, dtype, bn_route):
     """K6 against its plain versions, each step on the same inputs: the
     statistics (mean, var) and the running statistics updated in place
     against `batch_norm_train_plain` on a copy of the module; y against
@@ -682,9 +702,12 @@ def test_batch_norm_kernels_match_plain_versions(cuda_device, c, relu, dtype):
     data reaches it only through rounding). Tolerances: `assert_bn_close` for
     y and dx; mean, var and the running statistics rel 1e-5 of each
     tensor's max; dweight and dbias rel 1e-4 (sums of N products in two
-    orders)."""
+    orders). On the planned route and with the slots capped (every CTA of
+    2+ tiles streams); the largest shape takes the stream route each way."""
     for i, shape in enumerate(BN_SHAPES):
         x, bn, dy = bn_case(shape, c, dtype, seed=10 * c + i)
+        if bn_route == "stream" and i == 1:
+            assert bn_plan(x).route == "stream" and bn_plan(x, c).route == "stream"
         plain = copy.deepcopy(bn)
         y, stats = pbn.batch_norm_forward_cuda(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, 0.9, relu)
         _, want_stats = batch_norm_train_plain(x, plain, 0.9, relu)
@@ -727,10 +750,13 @@ def test_batch_norm_kernel_statistics_under_cancellation(cuda_device):
 
 
 @pytest.mark.cuda
-def test_batch_norm_kernels_repeat_bitwise_and_under_a_graph(cuda_device):
+@pytest.mark.parametrize("bn_route", BN_ROUTES, indirect=True)
+def test_batch_norm_kernels_repeat_bitwise_and_under_a_graph(cuda_device, bn_route):
     """Forward and backward at the larger shape in bf16 with the ReLU: two
     calls from the same running statistics equal bit for bit, and a CUDA
-    graph of both replays them bit for bit."""
+    graph of both (a cooperative launch each, captured) replays them bit
+    for bit, on the planned route (forward on chip, backward streaming) and
+    with both streaming."""
     x, bn, dy = bn_case(BN_SHAPES[1], 192, torch.bfloat16, seed=41)
     start = [bn.running_mean.clone(), bn.running_var.clone()]
 
@@ -758,12 +784,14 @@ def test_batch_norm_kernels_repeat_bitwise_and_under_a_graph(cuda_device):
 
 
 @pytest.mark.cuda
-def test_batch_norm_kernels_take_channel_slices_and_partial_gradients(cuda_device):
+@pytest.mark.parametrize("bn_route", BN_ROUTES, indirect=True)
+def test_batch_norm_kernels_take_channel_slices_and_partial_gradients(cuda_device, bn_route):
     """dy as a channel slice of a wider channels-last tensor (what the
-    backward of SlowFast's channel `cat` gives) equals dy made contiguous,
+    backward of SlowFast's channel `cat` gives; its tensor map carries the
+    row stride) equals dy made contiguous,
     bit for bit; asking for dx alone, or for dweight and dbias alone, gives
     the same tensors as asking for all three."""
-    x, bn, _ = bn_case(BN_SHAPES[0], 64, torch.bfloat16, seed=42)
+    x, bn, _ = bn_case(BN_SHAPES[1], 64, torch.bfloat16, seed=42)
     wide = torch.randn((x.shape[0], 256, *x.shape[2:]), device=cuda_device).to(torch.bfloat16)
     wide = wide.contiguous(memory_format=torch.channels_last)
     dy = wide[:, 192:]
@@ -782,7 +810,9 @@ def test_batch_norm_kernels_take_channel_slices_and_partial_gradients(cuda_devic
 def test_batch_norm_kernels_refuse_other_layouts(cuda_device):
     """An x that is not channels-last contiguous raises, and launches
     nothing; so does a dy whose rows are not 16-byte vectors of channels,
-    also when autograd hands it to the fused function's backward."""
+    also when autograd hands it to the fused function's backward, and a
+    channel-slice dy whose rows are wider than a TMA box spans (f32, C 520:
+    2080 bytes a row)."""
     x, bn, dy = bn_case(BN_SHAPES[0], 32, torch.float32, seed=43)
     before = dict(pbn.launches)
     with pytest.raises(ValueError, match="channels-last"):
@@ -795,6 +825,11 @@ def test_batch_norm_kernels_refuse_other_layouts(cuda_device):
     y = pbn.batch_norm_train_fused(x.requires_grad_(True), bn, relu=True)
     with pytest.raises(ValueError, match="channel slice"):
         y.backward(dy.contiguous())
+    wide_x, wide_bn, _ = bn_case(BN_SHAPES[0], 520, torch.float32, seed=47)
+    wider = torch.randn((x.shape[0], 528, *x.shape[2:]), device=cuda_device).contiguous(memory_format=torch.channels_last)
+    _, wide_stats = batch_norm_train_plain(wide_x, copy.deepcopy(wide_bn))
+    with pytest.raises(ValueError, match="channel slice"):
+        pbn.batch_norm_backward_cuda(wider[:, 8:], wide_x, wide_stats, wide_bn.weight, wide_bn.bias, True)
     assert dict(pbn.launches) == {**before, "bn": before.get("bn", 0) + 1}
 
 
@@ -817,3 +852,66 @@ def test_batch_norm_path_has_no_host_synchronize(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert x.grad is not None and bn.weight.grad is not None
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_at_full_width_take_the_stream_route(cuda_device):
+    """P2's `bn_s1` of a full-width step, [4, 192, 192, 336] bf16 with the
+    ReLU (99 MB, more than the grid's shared memory holds): both plans
+    stream, and the kernels agree with the plain versions as in
+    `test_batch_norm_kernels_match_plain_versions`."""
+    x, bn, dy = bn_case((4, 192, 336), 192, torch.bfloat16, seed=45)
+    assert bn_plan(x).route == "stream" and bn_plan(x, 192).route == "stream"
+    plain = copy.deepcopy(bn)
+    y, stats = pbn.batch_norm_forward_cuda(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, 0.9, True)
+    _, want_stats = batch_norm_train_plain(x, plain, 0.9, True)
+    assert_bn_close(y, batch_norm_normalize(x, stats, bn.weight, bn.bias, True), torch.bfloat16, "y")
+    for row, name in ((0, "mean"), (1, "var")):
+        assert rel_to_max(stats[row], want_stats[row]) <= 1e-5, name
+    dx, dw, db = pbn.batch_norm_backward_cuda(dy, x, stats, bn.weight, bn.bias, True)
+    want_dx, want_dw, want_db = batch_norm_train_backward_plain(dy, x, stats, bn.weight, bn.bias, True)
+    assert_bn_close(dx, want_dx, torch.bfloat16, "dx")
+    assert rel_to_max(dw, want_dw) <= 1e-4 and rel_to_max(db, want_db) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_on_two_streams_at_once(cuda_device):
+    """Two streams queue K6 calls at once, forward and backward, each a
+    cooperative grid of up to one CTA per SM (they cannot all be resident
+    together: the card must hold one back, not hang), and each stream's
+    results equal the same calls run alone, bit for bit."""
+    cases = [bn_case(BN_SHAPES[1], c, torch.bfloat16, seed=46 + c) for c in (192, 64)]
+
+    def run(x, bn, dy):
+        y, stats = pbn.batch_norm_forward_cuda(x, bn.weight, bn.bias, bn.running_mean.clone(),
+                                               bn.running_var.clone(), bn.eps, 0.9, True)
+        return [y, stats, *pbn.batch_norm_backward_cuda(dy, x, stats, bn.weight, bn.bias, True)]
+
+    want = [run(*case) for case in cases]
+    streams = [torch.cuda.Stream() for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [None, None]
+    for _ in range(20):
+        for i, (s, case) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                got[i] = run(*case)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.cuda
+def test_batch_norm_plan_asks_for_the_librarys_shared_memory(cuda_device):
+    """`pbn.plan`'s shared memory per CTA, mirrored in Python, equals the
+    library's own count (`sfvos_bn_smem_bytes`, the layout the kernels
+    use) each way, in both dtypes, at every channel count of a training
+    step and at C 1024, and stays under sm_90's cap."""
+    lib = pbn._prepared(torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for c in (32, 64, 192, 224, 1024):
+        for bf16 in (True, False):
+            for dy_stride in (None, c):
+                p = pbn.plan(258048, c, bf16, dy_stride, sms)
+                assert p.smem == lib.sfvos_bn_smem_bytes(int(bf16), int(dy_stride is not None), c, p.tile_rows, p.slots)
+                assert p.smem <= pbn.SMEM_MAX
