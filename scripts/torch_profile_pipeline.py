@@ -8,11 +8,11 @@ random weights) on both paths over one model: the CUDA graphs (the default
 on the card, one replay per superchunk) and the eager path (`graphs=False`),
 warms both up, then
 
-1. runs `infer_sequence` on the eager path with every stage wrapped in a
-   synchronize at both ends and timed on the host clock (stages run back to
-   back, so their times add up to the run's; the synchronizes remove any
-   overlap between stages). A replay runs no Python, so the stages are the
-   eager path's only;
+1. runs `infer_sequence` on the graph path with the port's tracer on
+   (`utils/profiling.py::TRACER`; the first run captures the graphs anew
+   with their stage marks): each graph's device milliseconds by stage a
+   replay, read from the timing events the graph records, and the host
+   spans' seconds a run;
 2. runs each path once more, unwrapped, under `torch.profiler`: the
    device's busy and idle share of the run and the kernels with the most
    device time;
@@ -35,64 +35,37 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from slowfast_vos_tpu_torch.models import pipeline as pipeline_mod  # noqa: E402
+from slowfast_vos_tpu_torch.utils.profiling import TRACER  # noqa: E402
 
-STAGE_FUNCS = ("filter_proposals", "multiscale_roi_align", "postprocess_detections", "paste_masks_in_image", "packbits")
-MODEL_METHODS = ("backbone_feats", "rpn_predict", "enhance", "box_predict", "mask_predict")
 FRAMES, SUPERCHUNK = 20, 8  # chip_smoke.py's main path
 RUNS, TOP = 3, 15
 
 
-def timed(name, fn, totals):
-    def wrapper(*args, **kw):
-        key = f"{name}{kw['output_size']}" if name == "multiscale_roi_align" else name
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        totals[key] += time.perf_counter() - t0
-        return out
-    return wrapper
-
-
-class TimedTransform:
-    """The pipeline's transform, its call timed, everything else delegated."""
-
-    def __init__(self, transform, totals):
-        self._transform, self._call = transform, timed("transform", transform.__call__, totals)
-
-    def __call__(self, images):
-        return self._call(images)
-
-    def __getattr__(self, name):
-        return getattr(self._transform, name)
-
-
-def stage_times(pipe, clip, runs: int) -> dict:
-    """Median over `runs` of each stage's seconds in one `infer_sequence`."""
-    saved = {n: getattr(pipeline_mod, n) for n in STAGE_FUNCS}
-    per_run = []
+def tracer_split(run, runs: int) -> dict:
+    """`run()` once with the port's tracer on, which captures its graphs
+    with their stage marks, then `runs` more times: each graph's device ms
+    by stage a read replay (`stages_ms`, by graph label) and the spans'
+    seconds a run (`spans_s`)."""
+    TRACER.enable()
     try:
+        run()
+        TRACER.take()
         for _ in range(runs):
-            totals = collections.Counter()
-            for n, fn in saved.items():
-                setattr(pipeline_mod, n, timed(n, fn, totals))
-            for n in MODEL_METHODS:
-                setattr(pipe.model, n, timed(n, getattr(type(pipe.model), n).__get__(pipe.model), totals))
-            transform, pipe.transform = pipe.transform, TimedTransform(pipe.transform, totals)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pipe.infer_sequence(clip)
-            torch.cuda.synchronize()
-            totals["total"] = time.perf_counter() - t0
-            pipe.transform = transform
-            for n in MODEL_METHODS:
-                delattr(pipe.model, n)
-            totals["other"] = totals["total"] - sum(v for k, v in totals.items() if k != "total")
-            per_run.append(totals)
+            run()
+        torch.cuda.synchronize()
+        snap = TRACER.take()
     finally:
-        for n, fn in saved.items():
-            setattr(pipeline_mod, n, fn)
-    return {k: float(np.median([r[k] for r in per_run])) for k in per_run[0]}
+        TRACER.disable()
+    return {"stages_ms": {label: {k: v / st["samples"] for k, v in st["ms"].items()}
+                          for label, st in snap["stages"].items() if st["samples"]},
+            "spans_s": {k: v["total_s"] / runs for k, v in snap["totals"].items()}}
+
+
+def print_split(split: dict) -> None:
+    for label, stages in split["stages_ms"].items():
+        print(f"stages (device, a replay) {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    for k, v in sorted(split["spans_s"].items(), key=lambda kv: -kv[1]):
+        print(f"span {k:28s} {v * 1e3:9.3f} ms a run")
 
 
 def device_profile(run, top: int, groups: dict | None = None) -> dict:
@@ -164,9 +137,8 @@ def main() -> int:
     clip = np.random.default_rng(1).integers(0, 256, (FRAMES, 480, 854, 3), dtype=np.uint8)
     for p in paths.values():
         p.infer_sequence(clip)  # warm-up: kernel build, cuDNN set-up, graph capture
-    stages = stage_times(paths["eager"], clip, RUNS)
-    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"stage (eager) {k:24s} {v * 1e3:9.2f} ms  {v / stages['total']:6.1%}")
+    split = tracer_split(lambda: paths["graphs"].infer_sequence(clip), RUNS)
+    print_split(split)
     profiles = {}
     for name, p in paths.items():
         profiles[name] = prof = device_profile(lambda: p.infer_sequence(clip), TOP)
@@ -191,7 +163,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "frames": FRAMES, "superchunk": SUPERCHUNK,
-        "stages_ms_eager": {k: v * 1e3 for k, v in stages.items()}, "profile": profiles,
+        "tracer": split, "profile": profiles,
         "wall_ms_in_turns": wall_ms, "walls_ms": walls,
     }))
     return 0

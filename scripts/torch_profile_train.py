@@ -8,10 +8,11 @@ default DetectionConfig, seeded random weights, one seeded window of moving
 blobs) and one `Trainer` on the card's default path, CUDA graphs
 (`train/graphs.py`), takes two warm-up steps on each path, then
 
-1. runs eager steps with every stage of the loss, the backward and the
-   optimizer step wrapped in a synchronize at both ends, timed on the host
-   clock (median over the runs): a graph replay calls no Python, so only
-   the eager path splits by stage;
+1. runs graph steps with the port's tracer on (`utils/profiling.py::
+   TRACER`; the first step captures the graphs anew with their stage
+   marks): the gradient and update graphs' device milliseconds by stage a
+   replay, read from the timing events the graphs record, and the host
+   spans' seconds a step;
 2. runs one more step of each path, unwrapped, under `torch.profiler`: its
    wall, the device's busy and idle share of it, the kernels with the
    most device time, and the device time of K6's kernels (train-mode
@@ -25,7 +26,6 @@ blobs) and one `Trainer` on the card's default path, CUDA graphs
 Prints the card's name and power limit and one JSON line. Needs CUDA.
 """
 import argparse
-import collections
 import json
 import pathlib
 import subprocess
@@ -39,16 +39,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
-from torch_profile_pipeline import TimedTransform, device_profile, timed  # noqa: E402
+from torch_profile_pipeline import device_profile, print_split, tracer_split  # noqa: E402
 
 from slowfast_vos_tpu_torch import data  # noqa: E402
 from slowfast_vos_tpu_torch.models import pipeline as pipeline_mod  # noqa: E402
 from slowfast_vos_tpu_torch.train import Trainer  # noqa: E402
-from slowfast_vos_tpu_torch.train import train_step as train_step_mod  # noqa: E402
 
-STAGE_FUNCS = ("filter_proposals", "rpn_loss", "select_training_samples", "multiscale_roi_align",
-               "fastrcnn_loss", "project_masks_on_boxes", "maskrcnn_loss")
-MODEL_METHODS = ("backbone_feats", "rpn_predict", "enhance", "box_predict", "mask_predict")
 RUNS, TOP, TURNS = 3, 20, 10
 # Kernels by name, in order of precedence: K6's own first (one kernel a call
 # each way).
@@ -64,52 +60,6 @@ def training_window():
     """chip_smoke.py's window: the second of a seeded 8-frame sequence."""
     images, ids = data.draw_sequence(np.random.default_rng(7), 8, 480, 854, 2)
     return list(data.train_windows(data.sequence_arrays(images, ids, 8), fast=3))[1]
-
-
-def one_step(trainer, batch, totals=None):
-    """An eager `Trainer.step` with its loss, backward and optimizer step
-    apart."""
-    clock = timed if totals is not None else (lambda name, fn, _: fn)
-    draws = trainer.make_draws(int(batch["boxes"].shape[1]))
-    trainer.model.train()
-    try:
-        total, _ = clock("loss", trainer.loss, totals)(batch, draws)
-        clock("backward", total.backward, totals)()
-    finally:
-        trainer.model.eval()
-    clock("optimizer", trainer.device_update, totals)()
-
-
-def stage_times(trainer, batch, runs: int) -> dict:
-    """Median over `runs` of each stage's seconds in one step. `loss` holds
-    the loss's stages, so the table subtracts them from it."""
-    saved = {n: getattr(train_step_mod, n) for n in STAGE_FUNCS}
-    model = trainer.model
-    per_run = []
-    try:
-        for _ in range(runs):
-            totals = collections.Counter()
-            for n, fn in saved.items():
-                setattr(train_step_mod, n, timed(n, fn, totals))
-            for n in MODEL_METHODS:
-                setattr(model, n, timed(n, getattr(type(model), n).__get__(model), totals))
-            transform, trainer.pipe.transform = trainer.pipe.transform, TimedTransform(trainer.pipe.transform, totals)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            one_step(trainer, batch, totals)
-            torch.cuda.synchronize()
-            totals["total"] = time.perf_counter() - t0
-            trainer.pipe.transform = transform
-            for n in MODEL_METHODS:
-                delattr(model, n)
-            inner = sum(v for k, v in totals.items() if k not in ("total", "loss", "backward", "optimizer"))
-            totals["loss other"] = totals.pop("loss") - inner
-            totals["other"] = totals["total"] - sum(v for k, v in totals.items() if k != "total")
-            per_run.append(totals)
-    finally:
-        for n, fn in saved.items():
-            setattr(train_step_mod, n, fn)
-    return {k: float(np.median([r[k] for r in per_run])) for k in per_run[0]}
 
 
 def main() -> int:
@@ -134,9 +84,8 @@ def main() -> int:
     for _ in range(2):  # warm-up: kernel build, cuDNN algorithm choice, the captures
         for step in paths.values():
             step()
-    stages = stage_times(trainer, batch, RUNS)
-    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"stage {k:24s} {v * 1e3:9.2f} ms  {v / stages['total']:6.1%}")
+    split = tracer_split(paths["graphs"], RUNS)
+    print_split(split)
     profiles = {}
     for name, step in paths.items():
         profiles[name] = prof = device_profile(step, TOP, KERNEL_GROUPS)
@@ -169,7 +118,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     )
     print(smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "stages_ms": {k: v * 1e3 for k, v in stages.items()},
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "tracer": split,
                       "profiles": profiles, "step_ms": step_ms, "step_ms_runs": turns, "peak_gib": peak_gib,
                       "capture_s": {"gradient": [g.capture_s for g in runner.graphs.values()],
                                     "update": runner.update.capture_s}}))

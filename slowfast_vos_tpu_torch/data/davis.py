@@ -10,7 +10,10 @@ reference loaders (`code/helpers/dataset.py:15-139`):
   (`dataset.py:21-30`).
 
 `load_sequence` returns fixed-shape numpy arrays padded to `max_gt` with
-validity masks, the batch contract of `train/train_step.py::Trainer`.
+validity masks, the batch contract of `train/train_step.py::Trainer`. Its
+tracer spans (`utils/profiling.py::TRACER`): `data.load_sequence` (a unit
+of work) > `data.decode_images`, `data.decode_masks` (the PNGs and the
+per-object mask array); counter `data.frames`.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from glob import glob
 
 import numpy as np
 from PIL import Image
+
+from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 
 @dataclasses.dataclass
@@ -125,14 +130,18 @@ def load_sequence(info: SequenceInfo, max_gt: int = 8, single_object: bool = Fal
       gt_valid [T,G] bool; frame_valid [T] bool (any gt present);
       name: sequence name.
     """
-    images = np.stack([np.array(Image.open(p).convert("RGB")) for p in info.images])
-    t = len(info.images)
-    h, w = images.shape[1:3]
-    boxes = np.zeros((t, max_gt, 4), np.float32)
-    masks = np.zeros((t, max_gt, h, w), np.uint8)
-    valid = np.zeros((t, max_gt), bool)
-    for i, mp in enumerate(info.masks):
-        boxes[i], masks[i], valid[i] = decode_frame_annotation(mp, max_gt, single_object)
+    with TRACER.span("data.load_sequence", unit=True):
+        with TRACER.span("data.decode_images"):
+            images = np.stack([np.array(Image.open(p).convert("RGB")) for p in info.images])
+        t = len(info.images)
+        h, w = images.shape[1:3]
+        with TRACER.span("data.decode_masks"):
+            boxes = np.zeros((t, max_gt, 4), np.float32)
+            masks = np.zeros((t, max_gt, h, w), np.uint8)
+            valid = np.zeros((t, max_gt), bool)
+            for i, mp in enumerate(info.masks):
+                boxes[i], masks[i], valid[i] = decode_frame_annotation(mp, max_gt, single_object)
+        TRACER.count("data.frames", t)
     return {
         "name": info.name,
         "images": images,

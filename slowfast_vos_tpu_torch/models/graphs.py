@@ -34,6 +34,13 @@ eagerly and captures it, then replays the graph with one launch:
 * kernel launches recorded at capture (`ops/cuda_build.py::
   recording_launches`) are counted again at every replay, so the launch
   counts of a run are those of the eager path;
+* with the tracer on (`utils/profiling.py::TRACER`), a capture records
+  the stage marks of `Pipeline._superchunk` as timing events into the
+  graph (its `StageClock`), and `replay` reads the previous replay's stage
+  times before each replay, without a synchronize. The key holds the
+  tracer's state, so traced and untraced graphs never stand in for each
+  other. The runner's spans: `graphs.run` > `graphs.check`,
+  `graphs.copy_in`, `graphs.replay`, `graphs.clone`; `graphs.capture`;
 * a graph reads the model's parameters and buffers where they were at
   capture. In-place updates (`load_state_dict`, optimizer steps, running
   statistics) are what a replay then computes with; a parameter or buffer
@@ -57,6 +64,7 @@ import weakref
 import torch
 
 from slowfast_vos_tpu_torch.ops import cuda_build
+from slowfast_vos_tpu_torch.utils.profiling import TRACER, StageClock
 
 _capture_streams: dict = {}  # device -> (its capture stream, the lock its users take)
 _capture_streams_lock = threading.Lock()
@@ -80,6 +88,7 @@ class CapturedSuperchunk:
     outputs: tuple  # (detections, carry) as `_superchunk` returns them, in the pool
     launches: dict  # kernel launches per replay, by `cuda_build.launches` key
     capture_s: float
+    clock: StageClock | None = None  # the stage marks' events, where captured with the tracer on
 
 
 def tensor_spec(x: torch.Tensor) -> tuple:
@@ -98,7 +107,7 @@ def _tensors(x):
             yield from _tensors(v)
 
 
-def capture(device: torch.device, pool, run, generators=()) -> tuple:
+def capture(device: torch.device, pool, run, generators=(), clock: StageClock | None = None) -> tuple:
     """Run `run()` eagerly on the device's capture stream, empty the
     allocator's cache, then capture the same call into a CUDA graph there
     (`capture_error_mode="thread_local"`), all under the stream's lock.
@@ -106,7 +115,9 @@ def capture(device: torch.device, pool, run, generators=()) -> tuple:
     stream from any other (autograd's device thread), are recorded, not
     counted. `generators` (device generators that `run` draws from) are
     registered with the graph, so a replay draws where the generator stands
-    and advances it as the eager call does.
+    and advances it as the eager call does. With a `clock`, the captured
+    call's stage marks record their events into it (the eager call's
+    record none).
 
     Returns (the eager call's result, usable on the caller's stream; the
     graph; the captured call's outputs, in `pool`; kernel launches per
@@ -126,12 +137,26 @@ def capture(device: torch.device, pool, run, generators=()) -> tuple:
             with cuda_build.recording_launches(stream.cuda_stream) as launches:
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
-                    outputs = run()
+                    with TRACER.recording(clock):
+                        outputs = run()
                 finally:
                     graph.capture_end()
             capture_s = time.perf_counter() - t0
         caller.wait_stream(stream)
     return result, graph, outputs, dict(launches), capture_s
+
+
+def replay(captured) -> None:
+    """One replay of a captured graph (a `CapturedSuperchunk` or a
+    `train/graphs.py::CapturedStep`): the previous replay's stage times read
+    first where the graph has marks, the launches it recorded counted."""
+    with TRACER.span("graphs.replay"):
+        if captured.clock is not None:
+            captured.clock.read()
+        captured.graph.replay()
+        if captured.clock is not None:
+            captured.clock.replayed()
+        cuda_build.count_replay(captured.launches)
 
 
 def superchunk_key(images, feat_valid, carry, instance_masks: bool) -> tuple:
@@ -145,6 +170,7 @@ def superchunk_key(images, feat_valid, carry, instance_masks: bool) -> tuple:
         instance_masks,
         torch.backends.cudnn.allow_tf32,
         torch.backends.cuda.matmul.allow_tf32,
+        TRACER.on,
     )
 
 
@@ -182,19 +208,22 @@ class SuperchunkGraphs:
         """`Pipeline._superchunk` on device inputs through the key's graph,
         captured at the key's first call. Returns (outputs, carry), tensors
         the caller owns."""
-        key = superchunk_key(images, feat_valid, carry, instance_masks)
-        sources = [*(images if isinstance(images, tuple) else (images,)), feat_valid, *(carry or ())]
-        with self._lock, torch.inference_mode():
-            self.check_model()
-            captured = self.graphs.get(key)
+        with TRACER.span("graphs.run"), self._lock, torch.inference_mode():
+            with TRACER.span("graphs.check"):
+                key = superchunk_key(images, feat_valid, carry, instance_masks)
+                sources = [*(images if isinstance(images, tuple) else (images,)), feat_valid, *(carry or ())]
+                self.check_model()
+                captured = self.graphs.get(key)
             if captured is None:
-                return self._capture(key, sources, instance_masks)
-            for dst, src in zip(captured.inputs, sources):
-                dst.copy_(src, non_blocking=True)
-            captured.graph.replay()
-            cuda_build.count_replay(captured.launches)
-            outs, next_carry = captured.outputs
-            return tuple(o.clone() for o in outs), [c.clone() for c in next_carry]
+                with TRACER.span("graphs.capture"):
+                    return self._capture(key, sources, instance_masks)
+            with TRACER.span("graphs.copy_in"):
+                for dst, src in zip(captured.inputs, sources):
+                    dst.copy_(src, non_blocking=True)
+            replay(captured)
+            with TRACER.span("graphs.clone"):
+                outs, next_carry = captured.outputs
+                return tuple(o.clone() for o in outs), [c.clone() for c in next_carry]
 
     def _capture(self, key, sources, instance_masks):
         """The key's first superchunk: run eagerly on the capture stream,
@@ -212,7 +241,8 @@ class SuperchunkGraphs:
             carry = inputs[planes + 1:] if carried else None
             return self.pipe._superchunk(images, inputs[planes], carry, instance_masks)
 
-        result, graph, outputs, launches, capture_s = capture(self.pipe.device, self._pool, superchunk)
-        self.graphs[key] = CapturedSuperchunk(graph, inputs, outputs, launches, capture_s)
+        clock = TRACER.stage_clock(f"superchunk.{'carried' if carried else 'first'}[{sources[0].shape[0]}]")
+        result, graph, outputs, launches, capture_s = capture(self.pipe.device, self._pool, superchunk, clock=clock)
+        self.graphs[key] = CapturedSuperchunk(graph, inputs, outputs, launches, capture_s, clock)
         self.captures += 1
         return result

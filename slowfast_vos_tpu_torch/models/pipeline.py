@@ -31,6 +31,12 @@ executable per superchunk); `Pipeline(..., graphs=False)` runs it eagerly,
 the CPU always does. Each window reaches the card from page-locked host
 memory without a host synchronize, so a run waits for the card only where
 `frame_detections` fetches its results.
+
+Tracer spans (`utils/profiling.py::TRACER`): `pipeline.infer_sequence` (a
+unit of work) > `pipeline.infer_chunks` > `pipeline.chunk_inputs`,
+`graphs.run`; `pipeline.fetch` > `pipeline.fetch_wait` (the copies to the
+host). Counter: `pipeline.frames` (real frames). Stage marks of `_superchunk`, read under graphs:
+`transform`, `backbone`, `rpn`, `slowfast`, `roi_heads`, `finalize`.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from slowfast_vos_tpu_torch.models.transform import ImageTransform, rgb_to_yuv42
 from slowfast_vos_tpu_torch.ops.constants import device_constant
 from slowfast_vos_tpu_torch.ops.paste_masks import paste_masks_in_image
 from slowfast_vos_tpu_torch.ops.roi_align import ROI_SCALES, multiscale_roi_align
+from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 TRANSPORTS = ("rgb", "yuv420")
@@ -70,26 +77,28 @@ def frame_detections(chunk_outputs: list, t: int, width: int, instance_masks: bo
     """The per-frame detection dicts of `infer_sequence` from its chunks'
     outputs (each a tuple of 5 device tensors with a leading frame axis),
     fetched to the host at once; the first `t` frames are kept."""
-    fboxes, fscores, flabels, fvalid, fmasks = (
-        torch.cat([outs[i] for outs in chunk_outputs])[:t].cpu().numpy() for i in range(5)
-    )
-    out: list[dict[str, Any]] = []
-    for g in range(t):
-        if instance_masks:
-            union = ((fmasks[g] >= 0.5) & fvalid[g][:, None, None]).any(0)
-        else:
-            union = np.unpackbits(fmasks[g], axis=-1, count=width).astype(bool)
-        det = {
-            "boxes": fboxes[g],
-            "scores": fscores[g],
-            "labels": flabels[g],
-            "valid": fvalid[g],
-            "union_mask": union,
-        }
-        if instance_masks:
-            det["masks"] = fmasks[g]
-        out.append(det)
-    return out
+    with TRACER.span("pipeline.fetch"):
+        with TRACER.span("pipeline.fetch_wait"):
+            fboxes, fscores, flabels, fvalid, fmasks = (
+                torch.cat([outs[i] for outs in chunk_outputs])[:t].cpu().numpy() for i in range(5)
+            )
+        out: list[dict[str, Any]] = []
+        for g in range(t):
+            if instance_masks:
+                union = ((fmasks[g] >= 0.5) & fvalid[g][:, None, None]).any(0)
+            else:
+                union = np.unpackbits(fmasks[g], axis=-1, count=width).astype(bool)
+            det = {
+                "boxes": fboxes[g],
+                "scores": fscores[g],
+                "labels": flabels[g],
+                "valid": fvalid[g],
+                "union_mask": union,
+            }
+            if instance_masks:
+                det["masks"] = fmasks[g]
+            out.append(det)
+        return out
 
 
 class Pipeline:
@@ -171,15 +180,21 @@ class Pipeline:
         # convs (reference zero padding).
         zero = torch.zeros((), dtype=feats[0].dtype, device=feats[0].device)
         feats = [torch.where(feat_valid[:, None, None, None], fl, zero) for fl in feats]
+        TRACER.mark("backbone")
 
         center = slice(self.halo_left, self.halo_left + sc)
         obj, dlt = self.model.rpn_predict([fl[center] for fl in feats])
         proposals, _scores, pvalid = filter_proposals(
             obj, dlt, self.anchors, image_hw=self.image_hw, cfg=self.cfg
         )
+        TRACER.mark("rpn")
         enhanced = self.model.enhance(feats[:4], pre_padded=True)
+        TRACER.mark("slowfast")
         finalize = self._finalize_instances if instance_masks else self._finalize
-        outs = finalize(*self._roi_forward(enhanced, proposals, pvalid))
+        detections = self._roi_forward(enhanced, proposals, pvalid)
+        TRACER.mark("roi_heads")
+        outs = finalize(*detections)
+        TRACER.mark("finalize")
         return outs, [fl[sc:] for fl in feats]
 
     def _superchunk(self, images, feat_valid, carry=None, instance_masks=False):
@@ -191,6 +206,7 @@ class Pipeline:
             canvas = self.transform.from_yuv420(*images)
         else:
             canvas = self.transform(images)
+        TRACER.mark("transform")
         feats = self.model.backbone_feats(canvas)
         if carry is not None:
             feats = [torch.cat([cf, nf]) for cf, nf in zip(carry, feats)]
@@ -261,8 +277,9 @@ class Pipeline:
         until one fetch at the end. `transport="yuv420"` uploads each window
         as YUV 4:2:0 planes (uint8 frames with even H, W): half the bytes,
         with 4:2:0 chroma, so its pixels differ from "rgb"'s."""
-        pending = self.infer_chunks(images, instance_masks=instance_masks, transport=transport)
-        return frame_detections(pending, images.shape[0], images.shape[2], instance_masks)
+        with TRACER.span("pipeline.infer_sequence", unit=True):
+            pending = self.infer_chunks(images, instance_masks=instance_masks, transport=transport)
+            return frame_detections(pending, images.shape[0], images.shape[2], instance_masks)
 
     @torch.inference_mode()
     def infer_chunks(self, images: np.ndarray, *, instance_masks: bool = False, transport: str = "rgb") -> list:
@@ -271,10 +288,13 @@ class Pipeline:
         use_carry = self.sf.fast > 1  # F = 1 has no overlap to carry
         carry = None
         pending = []
-        for c in range(0, images.shape[0], self.superchunk):
-            outs, next_carry = self.chunk_step(images, c, carry, instance_masks, transport)
-            carry = next_carry if use_carry else None
-            pending.append(outs)
+        with TRACER.span("pipeline.infer_chunks"):
+            t = images.shape[0]
+            for c in range(0, t, self.superchunk):
+                outs, next_carry = self.chunk_step(images, c, carry, instance_masks, transport)
+                carry = next_carry if use_carry else None
+                pending.append(outs)
+            TRACER.count("pipeline.frames", t)
         return pending
 
     def chunk_inputs(self, images: np.ndarray, c: int, carried: bool, transport: str = "rgb"):
@@ -286,27 +306,28 @@ class Pipeline:
         neither waits for the card nor makes it wait."""
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, not {transport!r}")
-        t = images.shape[0]
-        widxs = np.arange(c - self.halo_left, c + self.superchunk + self.halo_right)
-        idxs = widxs[self.sf.fast - 1 :] if carried else widxs
-        outside = (idxs < 0) | (idxs >= t)
-        pin = self.device.type == "cuda"
-        if transport == "yuv420":
-            window = images[np.clip(idxs, 0, t - 1)]
-            window[outside] = 0
-            n, h, w = window.shape[:3]
-            planes = (torch.empty((n, h, w), dtype=torch.uint8, pin_memory=pin),
-                      torch.empty((n, h // 2, w // 2, 2), dtype=torch.uint8, pin_memory=pin))
-            rgb_to_yuv420(window, out=tuple(p.numpy() for p in planes))
-        else:
-            planes = torch.empty((len(idxs), *images.shape[1:]), dtype=torch.from_numpy(images[:0]).dtype,
-                                 pin_memory=pin)
-            np.take(images, np.clip(idxs, 0, t - 1), axis=0, out=planes.numpy())
-            planes.numpy()[outside] = 0
-        valid = torch.empty(len(widxs), dtype=torch.bool, pin_memory=pin)
-        valid.numpy()[:] = (widxs >= 0) & (widxs < t)
-        upload = lambda x: x.to(self.device, non_blocking=True)  # noqa: E731
-        return (tuple(map(upload, planes)) if isinstance(planes, tuple) else upload(planes)), upload(valid)
+        with TRACER.span("pipeline.chunk_inputs"):
+            t = images.shape[0]
+            widxs = np.arange(c - self.halo_left, c + self.superchunk + self.halo_right)
+            idxs = widxs[self.sf.fast - 1 :] if carried else widxs
+            outside = (idxs < 0) | (idxs >= t)
+            pin = self.device.type == "cuda"
+            if transport == "yuv420":
+                window = images[np.clip(idxs, 0, t - 1)]
+                window[outside] = 0
+                n, h, w = window.shape[:3]
+                planes = (torch.empty((n, h, w), dtype=torch.uint8, pin_memory=pin),
+                          torch.empty((n, h // 2, w // 2, 2), dtype=torch.uint8, pin_memory=pin))
+                rgb_to_yuv420(window, out=tuple(p.numpy() for p in planes))
+            else:
+                planes = torch.empty((len(idxs), *images.shape[1:]), dtype=torch.from_numpy(images[:0]).dtype,
+                                     pin_memory=pin)
+                np.take(images, np.clip(idxs, 0, t - 1), axis=0, out=planes.numpy())
+                planes.numpy()[outside] = 0
+            valid = torch.empty(len(widxs), dtype=torch.bool, pin_memory=pin)
+            valid.numpy()[:] = (widxs >= 0) & (widxs < t)
+            upload = lambda x: x.to(self.device, non_blocking=True)  # noqa: E731
+            return (tuple(map(upload, planes)) if isinstance(planes, tuple) else upload(planes)), upload(valid)
 
     def chunk_step(self, images: np.ndarray, c: int, carry=None, instance_masks: bool = False, transport: str = "rgb"):
         """The superchunk of `infer_sequence` that starts at frame `c` of

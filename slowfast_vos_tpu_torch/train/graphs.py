@@ -51,6 +51,14 @@ generator.
   once, and nothing but the metrics, cloned at once, outlives a replay.
   Dropping the trainer frees its graphs and their pool.
 
+With the tracer on (`utils/profiling.py::TRACER`), a capture records the
+stage marks of `Trainer.device_gradient` (and the update's) as timing
+events into the graph, read before the graph's next replay; the tracer's
+state is part of the gradient key, and the update graph is captured anew
+where its state differs. Spans: `graphs.run` (the gradient) and
+`graphs.update`, each > `graphs.check`, `graphs.replay` (and the
+gradient's `graphs.copy_in`, `graphs.clone`); `graphs.capture`.
+
 A capture or replay that fails raises; nothing falls back to the eager
 path.
 """
@@ -63,8 +71,8 @@ import weakref
 
 import torch
 
-from slowfast_vos_tpu_torch.models.graphs import capture, tensor_spec
-from slowfast_vos_tpu_torch.ops import cuda_build
+from slowfast_vos_tpu_torch.models.graphs import capture, replay, tensor_spec
+from slowfast_vos_tpu_torch.utils.profiling import TRACER, StageClock
 
 
 @dataclasses.dataclass
@@ -75,6 +83,7 @@ class CapturedStep:
     launches: dict  # kernel launches per replay, by `cuda_build.launches` key
     capture_s: float
     pipe: object = None  # the pipeline a gradient graph reads (canvas, anchors), kept alive with it
+    clock: StageClock | None = None  # the stage marks' events, where captured with the tracer on
 
 
 def step_key(pipe, batch: dict, draws: dict | None, n_center: int) -> tuple:
@@ -86,6 +95,7 @@ def step_key(pipe, batch: dict, draws: dict | None, n_center: int) -> tuple:
         n_center,
         torch.backends.cudnn.allow_tf32,
         torch.backends.cuda.matmul.allow_tf32,
+        TRACER.on,
     )
 
 
@@ -130,53 +140,66 @@ class TrainStepGraphs:
         graph, captured at the key's first call. Returns the metrics,
         tensors the caller owns."""
         tr = self.trainer
-        names = sorted(batch)
-        draw_names = [] if draws is None else sorted(draws)
-        sources = [batch[k] for k in names] + [draws[k] for k in draw_names]
-        key = step_key(tr.pipe, batch, draws, tr.n_center)
-        with self._lock:
-            self.check_addresses()
-            captured = self.graphs.get(key)
+        with TRACER.span("graphs.run"), self._lock:
+            with TRACER.span("graphs.check"):
+                names = sorted(batch)
+                draw_names = [] if draws is None else sorted(draws)
+                sources = [batch[k] for k in names] + [draws[k] for k in draw_names]
+                key = step_key(tr.pipe, batch, draws, tr.n_center)
+                self.check_addresses()
+                captured = self.graphs.get(key)
             if captured is None:
-                device = tr.pipe.device
-                inputs = [torch.empty(s.shape, dtype=s.dtype, device=device) for s in sources]
-                for dst, src in zip(inputs, sources):
+                with TRACER.span("graphs.capture"):
+                    return self._capture_gradient(key, names, draw_names, sources, draws is None)
+            with TRACER.span("graphs.copy_in"):
+                for dst, src in zip(captured.inputs, sources):
                     dst.copy_(src, non_blocking=True)
+            replay(captured)
+            with TRACER.span("graphs.clone"):
+                return {k: v.clone() for k, v in captured.outputs.items()}
 
-                def gradient():
-                    static = dict(zip(names + draw_names, inputs))
-                    return tr.device_gradient({k: static[k] for k in names},
-                                              None if draws is None else {k: static[k] for k in draw_names})
+    def _capture_gradient(self, key, names, draw_names, sources, drawn: bool) -> dict[str, torch.Tensor]:
+        """The key's first call: eager on the capture stream, then captured
+        into a graph there. Returns the eager call's metrics."""
+        tr = self.trainer
+        device = tr.pipe.device
+        inputs = [torch.empty(s.shape, dtype=s.dtype, device=device) for s in sources]
+        for dst, src in zip(inputs, sources):
+            dst.copy_(src, non_blocking=True)
 
-                metrics, graph, outputs, launches, capture_s = capture(device, self._pool_handle(), gradient,
-                                                                       (tr.generator,))
-                self.graphs[key] = CapturedStep(graph, inputs, outputs, launches, capture_s, tr.pipe)
-                self.captures += 1
-                return metrics
-            for dst, src in zip(captured.inputs, sources):
-                dst.copy_(src, non_blocking=True)
-            captured.graph.replay()
-            cuda_build.count_replay(captured.launches)
-            return {k: v.clone() for k, v in captured.outputs.items()}
+        def gradient():
+            static = dict(zip(names + draw_names, inputs))
+            return tr.device_gradient({k: static[k] for k in names},
+                                      None if drawn else {k: static[k] for k in draw_names})
+
+        clock = TRACER.stage_clock(f"train.gradient[{sources[names.index('images')].shape[0]}]")
+        metrics, graph, outputs, launches, capture_s = capture(device, self._pool_handle(), gradient,
+                                                               (tr.generator,), clock)
+        self.graphs[key] = CapturedStep(graph, inputs, outputs, launches, capture_s, tr.pipe, clock)
+        self.captures += 1
+        return metrics
 
     def apply_update(self) -> None:
         """`Trainer.device_update` through the update graph, captured at the
         first call."""
         tr = self.trainer
-        with self._lock:
-            self.check_addresses()
-            if self.update is None:
+        with TRACER.span("graphs.update"), self._lock:
+            with TRACER.span("graphs.check"):
+                self.check_addresses()
+                captured = self.update
+            if captured is None or (captured.clock is not None) != TRACER.on:
 
                 def update():
                     tr.device_update()
                     return {}
 
-                _, graph, _, launches, capture_s = capture(tr.pipe.device, self._pool_handle(), update)
-                self.update = CapturedStep(graph, [], {}, launches, capture_s)
-                self.captures += 1
+                with TRACER.span("graphs.capture"):
+                    clock = TRACER.stage_clock("train.update")
+                    _, graph, _, launches, capture_s = capture(tr.pipe.device, self._pool_handle(), update, clock=clock)
+                    self.update = CapturedStep(graph, [], {}, launches, capture_s, clock=clock)
+                    self.captures += 1
                 return
-            self.update.graph.replay()
-            cuda_build.count_replay(self.update.launches)
+            replay(captured)
 
     def _pool_handle(self):
         if self._pool is None:

@@ -28,6 +28,11 @@ there.
 RoI pooling of the sampled rois goes through the differentiable
 `multiscale_roi_align`: the forward kernel and, for the gradient, the
 backward kernel on CUDA; the plain versions on the CPU.
+
+Tracer spans (`utils/profiling.py::TRACER`): `train.step` (a unit of work)
+> `train.stage_batch`, `graphs.run`, `graphs.update`; counter
+`train.steps`. Stage marks, read under graphs: `transform`, `backbone`,
+`rpn`, `slowfast`, `roi_heads`, `loss`, `backward`; the update's `update`.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from slowfast_vos_tpu_torch.models.rpn import filter_proposals, rpn_loss
 from slowfast_vos_tpu_torch.models.segmentation import TRAINABLE_TOPLEVEL
 from slowfast_vos_tpu_torch.ops.roi_align import ROI_SCALES, multiscale_roi_align
 from slowfast_vos_tpu_torch.train.graphs import TrainStepGraphs
+from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 
 def body_layers_to_train(trainable_backbone_layers: int) -> list[str]:
@@ -228,10 +234,13 @@ class Trainer:
 
         # Frozen backbone and RPN: no graph, as under the JAX stop_gradient.
         with torch.set_grad_enabled(self.backbone_trainable and torch.is_grad_enabled()):
-            feats = model.backbone_feats(pipe.transform(b["images"]))
+            canvas = pipe.transform(b["images"])
+            TRACER.mark("transform")
+            feats = model.backbone_feats(canvas)
             zero = torch.zeros((), dtype=feats[0].dtype, device=feats[0].device)
             fv = b["feat_valid"].to(torch.bool)
             feats = [torch.where(fv[:, None, None, None], fl, zero) for fl in feats]
+            TRACER.mark("backbone")
             center = slice(f // 2, f // 2 + n)
             obj, dlt = model.rpn_predict([fl[center] for fl in feats])
         with torch.no_grad():
@@ -243,8 +252,10 @@ class Trainer:
         gt_boxes = pipe.transform.transform_boxes(b["boxes"].to(torch.float32))
         gt_valid = b["gt_valid"].to(torch.bool) & b["frame_valid"].to(torch.bool)[:, None]
         obj_loss, rpn_box_loss = rpn_loss(obj, dlt, pipe.anchors, gt_boxes, gt_valid, cfg, draws["rpn_pos"], draws["rpn_neg"])
+        TRACER.mark("rpn")
 
         enhanced = [fl.contiguous() for fl in model.enhance(feats[:4], pre_padded=True)]
+        TRACER.mark("slowfast")
         with torch.no_grad():
             samples = select_training_samples(
                 proposals, pvalid, gt_boxes, b["labels"], gt_valid, cfg, draws["box_pos"], draws["box_neg"]
@@ -255,7 +266,6 @@ class Trainer:
         bsz = rois.shape[1]
         pooled7 = multiscale_roi_align(enhanced, rois, ROI_SCALES, output_size=7)
         cls, reg = model.box_predict(pooled7.reshape(n * bsz, *pooled7.shape[2:]))
-        cls_l, box_l = fastrcnn_loss(cls.reshape(n, bsz, -1), reg.reshape(n, bsz, cfg.num_classes, 4), samples)
 
         # Mask branch on the leading (positive-first) sampled rois.
         mr = min(cfg.mask_train_rois, bsz)
@@ -266,6 +276,9 @@ class Trainer:
         pooled14 = multiscale_roi_align(enhanced, mask_rois, ROI_SCALES, output_size=cfg.mask_roi_size)
         mo = cfg.mask_out_size
         mask_logits = model.mask_predict(pooled14.reshape(n * mr, *pooled14.shape[2:]))
+        TRACER.mark("roi_heads")
+
+        cls_l, box_l = fastrcnn_loss(cls.reshape(n, bsz, -1), reg.reshape(n, bsz, cfg.num_classes, 4), samples)
         mask_l = maskrcnn_loss(
             mask_logits.reshape(n, mr, mo, mo, cfg.num_classes), mask_targets,
             samples["labels"][:, :mr], samples["is_pos"][:, :mr],
@@ -286,22 +299,26 @@ class Trainer:
             "loss_objectness": obj_loss,
             "loss_rpn_box_reg": rpn_box_loss,
         }
+        TRACER.mark("loss")
         return total, {k: v.detach() for k, v in metrics.items()}
 
     def step(self, batch: dict, draws: dict | None = None) -> dict[str, torch.Tensor]:
         """One call: loss and gradient of the window in train mode, and an
         optimizer step on every `accumulate`-th call. Returns the metrics
         (`train_step.py:318-325`) as 0-d tensors on the device."""
-        metrics = self.accumulate_gradient(batch, draws)
-        if self.calls % self.accumulate == 0:
-            self.apply_update()
-        return metrics
+        with TRACER.span("train.step", unit=True):
+            TRACER.count("train.steps")
+            metrics = self.accumulate_gradient(batch, draws)
+            if self.calls % self.accumulate == 0:
+                self.apply_update()
+            return metrics
 
     def accumulate_gradient(self, batch: dict, draws: dict | None = None) -> dict[str, torch.Tensor]:
         """The first half of `step`: the loss and its gradient (divided by
         `accumulate`, added to the parameters' `.grad`) in train mode, the
         SlowFast running statistics updated, the call counted."""
-        batch = stage_batch(batch, self.pipe.device)
+        with TRACER.span("train.stage_batch"):
+            batch = stage_batch(batch, self.pipe.device)
         if self.graphs is not None:
             metrics = self.graphs.gradient(batch, draws)
         else:
@@ -319,6 +336,7 @@ class Trainer:
         try:
             total, metrics = self.loss(batch, draws)
             (total / self.accumulate).backward()
+            TRACER.mark("backward")
         finally:
             self.model.eval()
         return metrics
@@ -343,6 +361,7 @@ class Trainer:
         gradients zeroed in place."""
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=False)
+        TRACER.mark("update")
 
     def eval_state_dict(self) -> dict[str, torch.Tensor]:
         """A copy of the model's state dict (weights and the SlowFast running

@@ -28,6 +28,7 @@ from slowfast_vos_tpu_torch.train.train_step import Trainer
 from slowfast_vos_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from slowfast_vos_tpu_torch.utils.metrics import MetricsLogger
 from slowfast_vos_tpu_torch.utils.prefetch import prefetch
+from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 
 def start_weights(model, state_dict: dict | None, seed: int) -> None:
@@ -41,8 +42,10 @@ def start_weights(model, state_dict: dict | None, seed: int) -> None:
 
 def finite_loss(metrics: dict) -> float:
     """The step's loss as a number; a non-finite loss aborts training, as
-    the vendored engine does (`engine.py:48-51`)."""
-    loss = float(metrics["loss"])
+    the vendored engine does (`engine.py:48-51`). Tracer span
+    `train.loss_fetch`: the wait for the step's device work."""
+    with TRACER.span("train.loss_fetch"):
+        loss = float(metrics["loss"])
     if not np.isfinite(loss):
         raise FloatingPointError(f"Loss is {loss}, stopping training")
     return loss

@@ -22,12 +22,18 @@ forfeit (`code/train.py:66-67`).
   `__del__` signals the producer to exit as a best-effort backstop.
 * The producer checks the stop flag BEFORE advancing the source iterator, so
   `close()` never triggers (or waits on) one more decode than was consumed.
+* Tracer spans (`utils/profiling.py::TRACER`): the producer's
+  `prefetch.put_wait` (each put, blocked while the queue is full), the
+  consumer's `prefetch.get_wait` (each get, blocked while it is empty);
+  counter `prefetch.empty_gets` (gets that found the queue empty).
 """
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 T = TypeVar("T")
 
@@ -40,13 +46,14 @@ def _produce(it: Iterator, q: queue.Queue, stop: threading.Event) -> None:
 
     def put(payload) -> bool:
         # Blocking put that aborts when the consumer closed the iterator.
-        while not stop.is_set():
-            try:
-                q.put(payload, timeout=0.05)
-                return True
-            except queue.Full:
-                continue
-        return False
+        with TRACER.span("prefetch.put_wait"):
+            while not stop.is_set():
+                try:
+                    q.put(payload, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
 
     try:
         while not stop.is_set():
@@ -81,7 +88,10 @@ class PrefetchIterator(Iterator[T]):
     def __next__(self) -> T:
         if self._finished:
             raise StopIteration
-        item, exc = self._q.get()
+        if TRACER.on and self._q.empty():
+            TRACER.count("prefetch.empty_gets")
+        with TRACER.span("prefetch.get_wait"):
+            item, exc = self._q.get()
         if item is _DONE:
             self._finished = True
             self._thread.join()

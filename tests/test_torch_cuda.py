@@ -4,8 +4,9 @@ card against the CPU's, the YUV 4:2:0 decode on the card against the CPU's,
 the blocked NMS sweep on the card against the fixpoint, the NMS kernel
 (K3) against the fixpoint, index for index, the superchunk's CUDA
 graphs (`models/graphs.py`) against the eager path, bit for bit, the
-training step's (`train/graphs.py`) likewise, and K6, SlowFast's
-train-mode BatchNorm (`ops/batch_norm.py`), against its plain versions.
+training step's (`train/graphs.py`) likewise, their stage marks under the
+tracer (`utils/profiling.py`), and K6, SlowFast's train-mode BatchNorm
+(`ops/batch_norm.py`), against its plain versions.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -30,6 +31,7 @@ from slowfast_vos_tpu_torch.ops import roi_align as pra
 from slowfast_vos_tpu_torch import data
 from slowfast_vos_tpu_torch.train import Trainer
 from slowfast_vos_tpu_torch.train.pretrain import warmup_step_lr
+from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 
 @pytest.mark.cuda
@@ -585,6 +587,105 @@ def test_train_graph_replays_count_their_kernel_launches(cuda_device):
     # K6: 8 BatchNorms x 4 FPN levels, forward and backward.
     assert [c.launches for c in runner.graphs.values()] == [{**{k: 1 for k in TRAIN_KEYS}, "bn": 32, ("backward", "bn"): 32}]
     assert runner.update.launches == {}
+
+
+@pytest.fixture
+def traced():
+    """The port's tracer on, from empty; off and empty afterwards."""
+    TRACER.enable()
+    try:
+        yield TRACER
+    finally:
+        TRACER.disable()
+        TRACER.take()
+
+
+INFER_STAGES = ["transform", "backbone", "rpn", "slowfast", "roi_heads", "finalize"]
+
+
+@pytest.mark.cuda
+def test_stage_marks_in_a_graph_are_read_without_a_synchronize(cuda_device, traced):
+    """With the tracer on, the superchunk graphs are captured anew with
+    their stage marks as event nodes: the same launches per replay as the
+    untraced graphs, and the same detections as the eager path. A replay
+    bracketed by two events on the stream: its stage times sum to nearly
+    their span, and no more. A warm run, under the sync debug mode
+    "error", reads the replays that have finished before each replay; the
+    rest are read or counted unread at `take()`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe, eager, clip = graph_and_eager("small")
+    want = eager.infer_sequence(clip)
+    traced.disable()
+    pipe.infer_sequence(clip)
+    untraced = {key[:-1]: g.launches for key, g in pipe.graphs.graphs.items()}
+    traced.enable()
+    assert_same_detections(pipe.infer_sequence(clip), want)
+    assert pipe.graphs.captures == 4
+    marked = {key[:-1]: g for key, g in pipe.graphs.graphs.items() if key[-1]}
+    assert {k: g.launches for k, g in marked.items()} == untraced
+    assert all([name for name, _ in g.clock.events] == ["", *INFER_STAGES] for g in marked.values())
+    torch.cuda.synchronize()
+    traced.take()
+
+    images, valid = pipe.chunk_inputs(clip, 0, False)
+    pipe._run(images, valid)  # the first chunk's graph has not been replayed yet: its first launch uploads it
+    torch.cuda.synchronize()
+    traced.take()
+    before, after = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # the card busy meanwhile: the bracket holds no host time
+    before.record()
+    pipe._run(images, valid)
+    after.record()
+    torch.cuda.synchronize()
+    (label, stages), = traced.take()["stages"].items()
+    assert label.startswith("superchunk.first") and (stages["replays"], stages["samples"]) == (1, 1)
+    assert sorted(stages["ms"]) == sorted(INFER_STAGES) and all(v > 0 for v in stages["ms"].values())
+    span = before.elapsed_time(after)
+    assert 0.9 * span <= sum(stages["ms"].values()) <= span
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pipe.infer_chunks(clip)
+        pending += pipe.infer_chunks(clip)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert_same_detections(frame_detections(pending[len(pending) // 2:], clip.shape[0], clip.shape[2]), want)
+    snap = traced.take()
+    chunks = -(-clip.shape[0] // pipe.superchunk)
+    assert sum(st["replays"] for st in snap["stages"].values()) == 2 * chunks == snap["totals"]["graphs.replay"]["calls"]
+    assert all(st["samples"] + st["unread"] == st["replays"] and st["samples"] for st in snap["stages"].values())
+
+
+@pytest.mark.cuda
+def test_train_stage_marks_are_read_every_step(cuda_device, traced):
+    """With the tracer on, the gradient and update graphs carry their stage
+    marks; the loss fetch's synchronize lets every replay be read, and the
+    steps match those of an untraced trainer from the same state (cuDNN's
+    deterministic algorithms, as in the bit-for-bit test above)."""
+    from slowfast_vos_tpu_torch.train.trainer import finite_loss
+
+    pipes, calls = train_setup()
+    start = {k: v.clone() for k, v in pipes[0].model.state_dict().items()}
+    batch = calls[1][1]
+    losses = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        for on in (False, True):
+            pipes[0].model.load_state_dict(start)
+            if on:
+                traced.enable()
+            else:
+                traced.disable()
+            tr = Trainer(pipes[0], seed=3)
+            losses.append([finite_loss(tr.step(batch)) for _ in range(4)])
+    assert losses[0] == losses[1]
+    snap = traced.take()
+    stages = snap["stages"]
+    grad = next(v for k, v in stages.items() if k.startswith("train.gradient"))
+    assert (grad["replays"], grad["samples"]) == (3, 3) and stages["train.update"]["samples"] == 3
+    assert sorted(grad["ms"]) == sorted(["transform", "backbone", "rpn", "slowfast", "roi_heads", "loss", "backward"])
+    assert grad["ms"]["backward"] > 0 and list(stages["train.update"]["ms"]) == ["update"]
+    assert snap["counters"]["train.steps"] == 4 and snap["totals"]["graphs.capture"]["calls"] == 2
 
 
 @pytest.mark.cuda
