@@ -18,7 +18,7 @@ part is timed on the host clock:
   inference  `Pipeline.infer_sequence` (ends in a fetch), synchronized
   png        writing the results tree
   scoring    `DavisScorer.evaluate`
-  decode     `load_sequence` in the evaluation's prefetch thread (overlapped)
+  decode     `decode_sequence` in the evaluation's prefetch thread (overlapped)
   augment    the OSVOS items in the training's prefetch thread (overlapped)
   evaluation `davis_evaluation` as a whole, to split the rest of the time
 
@@ -84,7 +84,7 @@ def profile_sequence(pipe, start, root, name, items) -> dict:
         patch(pipeline_mod.Pipeline, "infer_sequence", "inference", calls, sync=True),
         patch(glue, "_write_sequence_masks", "png", calls, sync=False),
         patch(scorer.DavisScorer, "evaluate", "scoring", calls, sync=False),
-        patch(glue, "load_sequence", "decode", calls, sync=False),
+        patch(glue, "decode_sequence", "decode", calls, sync=False),
         patch(osvos_dataset.OsvosFirstFrameDataset, "__getitem__", "augment", calls, sync=False),
         patch(osvos, "davis_evaluation", "evaluation", calls, sync=True),
     ]

@@ -21,8 +21,8 @@ end-to-end metrics of a `--trace 0` run here with those of
 
 Readings (ms and % as named; None where the run has nothing to read):
 
-* `decode_ms_per_frame.train`: `data.load_sequence` (its children
-  included) over `data.frames`;
+* `decode_ms_per_frame.train`: the per-frame spans `data.decode_images`
+  and `data.decode_masks`, clipped to the window, over `data.frames`;
 * `producer_busy.train`: 100 x (producer wall - `prefetch.put_wait`) /
   producer wall, the wall being the snapshot's interval;
 * `stage_ms_per_step.train`: `train.stage_batch` over `train.steps`;
@@ -85,6 +85,22 @@ def stage_ms(snap: dict, stages, prefix: str) -> float | None:
     return total if read else None
 
 
+DECODE_SPANS = ("data.decode_images", "data.decode_masks")
+
+
+def decode_s(snap: dict) -> float | None:
+    """Seconds of the per-frame decode spans inside the snapshot's interval:
+    their totals less the part before `t0_ns` of a span open across it (the
+    producer's span is stretched there while the traced segment's profiler
+    shuts down). None where none ran."""
+    parts = [total_s(snap, name) for name in DECODE_SPANS]
+    if parts == [None, None]:
+        return None
+    t0 = snap["t0_ns"]
+    before = sum(t0 - s["start_ns"] for s in snap["spans"] if s["name"] in DECODE_SPANS and s["start_ns"] < t0)
+    return sum(p or 0.0 for p in parts) - 1e-9 * before
+
+
 def producer_busy(snap: dict) -> float | None:
     """100 x (wall - `prefetch.put_wait`) / wall over the producer threads,
     the wall being the snapshot's interval; the waits clipped to it."""
@@ -108,7 +124,7 @@ def readings(kind: str, window: dict, setup: dict | None) -> dict:
     if kind == "train":
         steps = c.get("train.steps")
         out.update({
-            "decode_ms_per_frame.train": _per(_ms(total_s(window, "data.load_sequence")), c.get("data.frames")),
+            "decode_ms_per_frame.train": _per(_ms(decode_s(window)), c.get("data.frames")),
             "producer_busy.train": producer_busy(window),
             "stage_ms_per_step.train": _per(_ms(total_s(window, "train.stage_batch")), steps),
             "device_step_ms.train": _per(stage_ms(window, TRAIN_STAGES, "train."), steps),

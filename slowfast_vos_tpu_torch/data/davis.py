@@ -9,16 +9,20 @@ reference loaders (`code/helpers/dataset.py:15-139`):
   line) and the 2016 layout (`ImageSets/480p/<subset>.txt`, per-frame paths)
   (`dataset.py:21-30`).
 
-`load_sequence` returns fixed-shape numpy arrays padded to `max_gt` with
-validity masks, the batch contract of `train/train_step.py::Trainer`. Its
-tracer spans (`utils/profiling.py::TRACER`): `data.load_sequence` (a unit
-of work) > `data.decode_images`, `data.decode_masks` (the PNGs and the
-per-object mask array); counter `data.frames`.
+`load_sequence` returns a `LazySequence`: fixed-shape numpy arrays padded
+to `max_gt` with validity masks, the batch contract of
+`train/train_step.py::Trainer`, decoded a frame at a time when first asked
+for. Tracer spans (`utils/profiling.py::TRACER`): `data.load_sequence` (a
+unit of work: opening a sequence); per decoded frame `data.decode_images`
+(the JPEG) and `data.decode_masks` (the PNG and its per-object masks),
+wherever the frame is first asked for; counter `data.frames`, frames
+decoded.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+from collections.abc import Mapping
 from glob import glob
 
 import numpy as np
@@ -89,9 +93,11 @@ def annotation_from_ids(mask: np.ndarray, max_gt: int, single_object: bool = Fal
     Mirrors the reference's box derivation (`dataset.py:89-107`): object ids
     are the nonzero values present in THIS frame, in ascending order; boxes
     are [xmin, ymin, xmax, ymax] from mask extents; objects with a degenerate
-    extent are dropped."""
+    extent are dropped. Each object costs a comparison written into its
+    slot and two `any` reductions; the ids of an unsigned mask come from a
+    count of its values, without `np.unique`'s sort."""
     h, w = mask.shape[:2]
-    obj_ids = np.unique(mask)
+    obj_ids = np.flatnonzero(np.bincount(mask.ravel())) if mask.dtype.kind == "u" else np.unique(mask)
     obj_ids = obj_ids[obj_ids != 0]
     if single_object:
         obj_ids = obj_ids[:1]
@@ -100,19 +106,18 @@ def annotation_from_ids(mask: np.ndarray, max_gt: int, single_object: bool = Fal
     masks = np.zeros((max_gt, h, w), np.uint8)
     valid = np.zeros((max_gt,), bool)
     slot = 0
-    for oid in obj_ids:
+    for oid in obj_ids.tolist():
         if slot >= max_gt:
             break
-        bin_mask = mask == oid
-        ys, xs = np.where(bin_mask)
-        if len(xs) == 0:
-            continue
-        x1, x2, y1, y2 = xs.min(), xs.max(), ys.min(), ys.max()
+        bin_mask = np.equal(mask, oid, out=masks[slot].view(bool))
+        ys, xs = np.flatnonzero(bin_mask.any(axis=1)), np.flatnonzero(bin_mask.any(axis=0))
+        x1, x2, y1, y2 = xs[0], xs[-1], ys[0], ys[-1]
         if x1 < x2 and y1 < y2:
             boxes[slot] = [x1, y1, x2, y2]
-            masks[slot] = bin_mask
             valid[slot] = True
             slot += 1
+        else:
+            masks[slot] = 0
     return boxes, masks, valid
 
 
@@ -122,34 +127,89 @@ def decode_frame_annotation(mask_path: str, max_gt: int, single_object: bool = F
     return annotation_from_ids(np.array(Image.open(mask_path)), max_gt, single_object)
 
 
-def load_sequence(info: SequenceInfo, max_gt: int = 8, single_object: bool = False):
-    """Decode a whole sequence into fixed-shape arrays.
+FRAME_FIELDS = ("images", "boxes", "masks", "gt_valid", "frame_valid")
 
-    Returns dict:
-      images [T,H,W,3] uint8; boxes [T,G,4] f32; masks [T,G,H,W] uint8;
-      gt_valid [T,G] bool; frame_valid [T] bool (any gt present);
-      name: sequence name.
-    """
-    with TRACER.span("data.load_sequence", unit=True):
+
+class LazySequence(Mapping):
+    """A sequence of `load_sequence`, decoded a frame at a time.
+
+    A mapping of `name` and the fields of `FRAME_FIELDS`: images [T,H,W,3]
+    uint8; boxes [T,G,4] f32; masks [T,G,H,W] uint8; gt_valid [T,G] bool;
+    frame_valid [T] bool (any gt present). `frame(i)` decodes frame i the
+    first time it is asked for (JPEG, PNG, `annotation_from_ids`) and holds
+    it until `forget` drops it; frames past the last mask (OSVOS clips)
+    have no objects. Reading a field decodes every frame not held, once,
+    and returns the whole sequence's arrays. `data/windows.py::train_windows`
+    asks for a window's frames only and forgets those behind it."""
+
+    def __init__(self, info: SequenceInfo, max_gt: int, single_object: bool):
+        self.info, self.max_gt, self.single_object = info, max_gt, single_object
+        self.length = len(info.images)
+        self._frames: dict[int, dict] = {}
+        self._arrays: dict | None = None
+
+    def __getitem__(self, key):
+        if key == "name":
+            return self.info.name
+        if key not in FRAME_FIELDS:
+            raise KeyError(key)
+        return self._read()[key]
+
+    def __iter__(self):
+        return iter(("name", *FRAME_FIELDS))
+
+    def __len__(self):
+        return 1 + len(FRAME_FIELDS)
+
+    def frame(self, i: int) -> dict:
+        """Frame i's fields (`FRAME_FIELDS`, without the leading T)."""
+        if self._arrays is not None:
+            return {k: self._arrays[k][i] for k in FRAME_FIELDS}
+        if i not in self._frames:
+            self._frames[i] = self._decode(i)
+        return self._frames[i]
+
+    def forget(self, below: int) -> None:
+        """Drop the held frames before frame `below`."""
+        for i in [i for i in self._frames if i < below]:
+            del self._frames[i]
+
+    def _decode(self, i: int) -> dict:
         with TRACER.span("data.decode_images"):
-            images = np.stack([np.array(Image.open(p).convert("RGB")) for p in info.images])
-        t = len(info.images)
-        h, w = images.shape[1:3]
+            # a view of the decoded bytes; `convert` only where the JPEG is not RGB (it would copy them)
+            im = Image.open(self.info.images[i])
+            image = np.asarray(im if im.mode == "RGB" else im.convert("RGB"))
         with TRACER.span("data.decode_masks"):
-            boxes = np.zeros((t, max_gt, 4), np.float32)
-            masks = np.zeros((t, max_gt, h, w), np.uint8)
-            valid = np.zeros((t, max_gt), bool)
-            for i, mp in enumerate(info.masks):
-                boxes[i], masks[i], valid[i] = decode_frame_annotation(mp, max_gt, single_object)
-        TRACER.count("data.frames", t)
-    return {
-        "name": info.name,
-        "images": images,
-        "boxes": boxes,
-        "masks": masks,
-        "gt_valid": valid,
-        "frame_valid": valid.any(axis=1),
-    }
+            if i < len(self.info.masks):
+                boxes, masks, valid = decode_frame_annotation(self.info.masks[i], self.max_gt, self.single_object)
+            else:
+                boxes = np.zeros((self.max_gt, 4), np.float32)
+                masks = np.zeros((self.max_gt, *image.shape[:2]), np.uint8)
+                valid = np.zeros((self.max_gt,), bool)
+        TRACER.count("data.frames")
+        return {"images": image, "boxes": boxes, "masks": masks, "gt_valid": valid, "frame_valid": valid.any()}
+
+    def _read(self) -> dict:
+        """The whole sequence's arrays, each frame written in as it is
+        decoded (or taken from those held)."""
+        if self._arrays is None:
+            arrays = {}
+            for i in range(self.length):
+                f = self._frames.pop(i, None) or self._decode(i)
+                for k, v in f.items():
+                    if k not in arrays:
+                        arrays[k] = np.empty((self.length, *np.shape(v)), np.asarray(v).dtype)
+                    arrays[k][i] = v
+            self._arrays = arrays
+        return self._arrays
+
+
+def load_sequence(info: SequenceInfo, max_gt: int = 8, single_object: bool = False) -> LazySequence:
+    """Open a sequence: a `LazySequence`, which decodes nothing yet. Its
+    fields are the arrays of the whole sequence; `dict(seq)` reads them
+    all."""
+    with TRACER.span("data.load_sequence", unit=True):
+        return LazySequence(info, max_gt, single_object)
 
 
 DAVIS_PALETTE = np.concatenate(

@@ -42,7 +42,7 @@ class OsvosFirstFrameDataset:
             images=info.images[:n_frames],
             masks=info.masks[:1],
         )
-        self.seq = load_sequence(clipped, max_gt=max_gt, single_object=True)
+        self.seq = dict(load_sequence(clipped, max_gt=max_gt, single_object=True))
         self.flip = augment.RandomFlip()
         self.scale = augment.RandomScale(scale)
         self.rotate = augment.RandomRotate(rotate)

@@ -54,6 +54,13 @@ def _write_sequence_masks(out_dir, name, dets, year, threshold, progress):
         progress(name)
 
 
+def decode_sequence(info, max_gt: int) -> dict:
+    """A sequence's arrays, decoded whole on the calling thread (the
+    prefetch thread of `extract_masks`): `load_sequence` decodes frames only
+    when they are read."""
+    return dict(load_sequence(info, max_gt=max_gt))
+
+
 def extract_masks(
     pipe,
     davis_root: str,
@@ -109,7 +116,7 @@ def extract_masks(
     instance_masks = threshold != 0.5
 
     def decode(info):
-        return info, load_sequence(info, max_gt=pipe.cfg.max_gt)
+        return info, decode_sequence(info, pipe.cfg.max_gt)
 
     if devices is not None:
         dp = DeviceParallelInference(pipe, devices, instance_masks=instance_masks)

@@ -144,7 +144,7 @@ def extract_rpn_proposals(
     index = DavisIndex(davis_root, subset, year=year)
     out = {}
     with prefetch(
-        ((info, load_sequence(info, max_gt=pipe.cfg.max_gt)) for info in index), depth=1
+        ((info, dict(load_sequence(info, max_gt=pipe.cfg.max_gt))) for info in index), depth=1
     ) as decoded:
         for info, seq in decoded:
             _feats, proposals, pvalid = pipe.compute_sequence_features(seq["images"])

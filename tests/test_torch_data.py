@@ -1,7 +1,9 @@
 """The PyTorch port's data layer against the JAX package's, on the same
 seeded inputs: the synthetic DAVIS tree, the DAVIS index and sequence
 decode (2016 and 2017 layouts), every augmentation transform and sampler,
-the OSVOS first-frame dataset, aspect grouping and the frame-level batches.
+the OSVOS first-frame dataset, aspect grouping and the frame-level batches;
+the training windows, streamed out of a lazily decoded sequence, against
+the same windows cut out of the whole sequence's arrays.
 
 Both packages run the same Pillow and OpenCV calls on the same numbers, so
 every comparison is exact: arrays equal element for element, files equal
@@ -10,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+from PIL import Image
 
 from slowfast_vos_tpu.data import augment as jax_augment
 from slowfast_vos_tpu.data import davis as jax_davis
@@ -17,9 +20,11 @@ from slowfast_vos_tpu.data import frames as jax_frames
 from slowfast_vos_tpu.data import grouping as jax_grouping
 from slowfast_vos_tpu.data.osvos_dataset import OsvosFirstFrameDataset as JaxOsvosDataset
 from slowfast_vos_tpu.data.synthetic import make_synthetic_davis as jax_make_synthetic_davis
+from slowfast_vos_tpu.data.windows import train_windows as jax_train_windows
 from slowfast_vos_tpu_torch.data import augment, davis, frames, grouping
 from slowfast_vos_tpu_torch.data.osvos_dataset import OsvosFirstFrameDataset
 from slowfast_vos_tpu_torch.data.synthetic import make_synthetic_davis
+from slowfast_vos_tpu_torch.data.windows import train_windows
 
 TREES = {
     "2017-train": [dict(num_sequences=2, frames=5, hw=(36, 60), num_objects=2)],
@@ -75,7 +80,10 @@ def test_synthetic_tree_matches_jax_file_by_file(trees, name):
         assert got[path] == want[path], path
 
 
-@pytest.mark.parametrize("name,subset,year", [("2017-train", "train", "2017"), ("2016-val", "val", "2016"), ("mixed", "val", "2017")])
+SUBSETS = [("2017-train", "train", "2017"), ("2016-val", "val", "2016"), ("mixed", "val", "2017")]
+
+
+@pytest.mark.parametrize("name,subset,year", SUBSETS)
 @pytest.mark.parametrize("single_object", [False, True])
 def test_index_and_load_sequence_match_jax(trees, name, subset, year, single_object):
     root = trees[name][1]
@@ -87,6 +95,89 @@ def test_index_and_load_sequence_match_jax(trees, name, subset, year, single_obj
         assert seq["name"] == ref["name"]
         assert_items_equal({k: v for k, v in seq.items() if k != "name"}, {k: v for k, v in ref.items() if k != "name"})
         assert seq["gt_valid"].any()
+
+
+@pytest.mark.parametrize("name,subset,year", SUBSETS)
+@pytest.mark.parametrize("fast", [1, 3, 7])
+@pytest.mark.parametrize("n_center", [1, 2])
+@pytest.mark.parametrize("single_object", [False, True])
+def test_streamed_windows_equal_the_eager_ones(trees, name, subset, year, fast, n_center, single_object):
+    """`train_windows` over a lazily decoded sequence (each window decoding
+    its new frames) against the same function over the whole sequence's
+    arrays and the JAX package's eager loader and windows: the same windows
+    element for element. The trees' sequences of 2-5 frames are shorter
+    than a window at fast 7; each is also cut to its first mask, as OSVOS
+    clips are."""
+    root = trees[name][1]
+    infos = list(davis.DavisIndex(root, subset, year=year))
+    infos += [davis.SequenceInfo(s.name, s.images, s.masks[:1]) for s in infos]
+    for info in infos:
+        def load(loader):
+            return loader(info, max_gt=3, single_object=single_object)
+
+        streamed = list(train_windows(load(davis.load_sequence), fast, n_center))
+        eager = list(train_windows(dict(load(davis.load_sequence)), fast, n_center))
+        want = list(jax_train_windows(load(jax_davis.load_sequence), fast, n_center))
+        assert len(streamed) == len(eager) == len(want) == -(-len(info.images) // n_center)
+        for s, e, w in zip(streamed, eager, want):
+            assert_items_equal(s, w)
+            assert_items_equal(e, w)
+
+
+def annotation_plain(mask, max_gt, single_object=False):
+    """`annotation_from_ids` as the JAX package and the reference compute
+    it: `np.unique` for the ids, `np.where` for each object's extent."""
+    obj_ids = np.unique(mask)
+    obj_ids = obj_ids[obj_ids != 0][: 1 if single_object else None]
+    boxes = np.zeros((max_gt, 4), np.float32)
+    masks = np.zeros((max_gt, *mask.shape), np.uint8)
+    valid = np.zeros((max_gt,), bool)
+    slot = 0
+    for oid in obj_ids:
+        if slot >= max_gt:
+            break
+        ys, xs = np.where(mask == oid)
+        if xs.min() < xs.max() and ys.min() < ys.max():
+            boxes[slot] = [xs.min(), ys.min(), xs.max(), ys.max()]
+            masks[slot] = mask == oid
+            valid[slot] = True
+            slot += 1
+    return boxes, masks, valid
+
+
+def id_mask(seed, dtype):
+    """Blocks of ids (some beyond max_gt), a one-pixel object, a one-row
+    and a one-column object (degenerate extents, dropped), ids that skip."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((40, 64), dtype)
+    for oid in rng.permutation([1, 2, 3, 5, 9, 200])[: rng.integers(2, 7)]:
+        y, x = rng.integers(0, 30), rng.integers(0, 50)
+        mask[y : y + rng.integers(2, 10), x : x + rng.integers(2, 14)] = oid
+    mask[rng.integers(0, 40), rng.integers(0, 64)] = 7
+    mask[rng.integers(0, 40), 3:9] = 4
+    mask[5:12, rng.integers(0, 64)] = 6
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int32])
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("max_gt,single_object", [(8, False), (3, False), (8, True)])
+def test_annotation_from_ids_matches_the_plain_loop(dtype, seed, max_gt, single_object):
+    mask = id_mask(seed, dtype)
+    got = davis.annotation_from_ids(mask, max_gt, single_object)
+    for g, w in zip(got, annotation_plain(mask, max_gt, single_object), strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+def test_a_grey_jpeg_is_converted_to_rgb_as_the_jax_loader_does(tmp_path):
+    root = str(tmp_path)
+    make_synthetic_davis(root, num_sequences=1, frames=3, hw=(36, 60))
+    info = davis.DavisIndex(root, "train").sequences[0]
+    Image.open(info.images[1]).convert("L").save(info.images[1])  # a grey JPEG among RGB ones
+    seq = davis.load_sequence(info, max_gt=3)
+    assert seq.frame(0)["images"].shape == seq.frame(1)["images"].shape == (36, 60, 3)
+    assert_items_equal(dict(seq), jax_davis.load_sequence(info, max_gt=3))
 
 
 def test_named_sequences_and_palette_writer(trees, tmp_path):

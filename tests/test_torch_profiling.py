@@ -258,18 +258,98 @@ def test_prefetch_counts_gets_and_empty_gets(traced, slow):
 
 
 def test_load_sequence_counts_the_frames_it_decodes(traced, tmp_path):
+    """As the training feed runs: open a sequence, cut its windows, open the
+    next. Each frame is decoded once, inside the window that first touches
+    it, in the unit of its sequence."""
     names = data.make_synthetic_davis(str(tmp_path), num_sequences=2, frames=5, hw=HW)
     index = DavisIndex(str(tmp_path), "train", year="2017")
-    seqs = [load_sequence(info, max_gt=3) for info in index]
-    windows = [w for seq in seqs for w in data.train_windows(seq, fast=3)]
+    seqs, windows = [], []
+    for info in index:
+        seqs.append(load_sequence(info, max_gt=3))
+        windows += data.train_windows(seqs[-1], fast=3)
     snap = traced.take()
-    assert len(names) == 2 and snap["counters"]["data.frames"] == sum(s["images"].shape[0] for s in seqs) == 10
+    assert len(names) == 2 and snap["counters"]["data.frames"] == sum(s.length for s in seqs) == 10
     assert snap["counters"] == {"data.frames": 10}
     loads = by_name(snap, "data.load_sequence")
     assert len(loads) == 2 and len({s["unit"] for s in loads}) == 2
+    cuts = by_name(snap, "data.window")
     for child in ("data.decode_images", "data.decode_masks"):
-        assert sorted(s["parent"] for s in by_name(snap, child)) == sorted(s["id"] for s in loads)
+        spans = by_name(snap, child)
+        assert len(spans) == 10 and {s["parent"] for s in spans} <= {s["id"] for s in cuts}
+        assert sorted(s["unit"] for s in spans) == sorted(s["unit"] for s in loads for _ in range(5))
     assert snap["totals"]["data.window"]["calls"] == len(windows) == 6
+
+
+@pytest.mark.parametrize("fast,n_center", [(1, 2), (3, 1), (3, 2), (7, 1), (7, 2)])
+def test_windows_decode_each_frame_once_when_first_touched(traced, tmp_path, fast, n_center):
+    """After each window: the frames decoded so far are those the windows
+    have touched, and the sequence holds only those the next window shares
+    (at most a window's); after the epoch, every frame once."""
+    data.make_synthetic_davis(str(tmp_path), num_sequences=2, frames=7, hw=HW)
+    data.make_synthetic_davis(str(tmp_path), num_sequences=1, frames=2, hw=HW, start=2, subset=None, seed=5)
+    infos = [*DavisIndex(str(tmp_path), "train", year="2017"), *DavisIndex(str(tmp_path), sequences="synth02")]
+    halo_left, halo_right = fast // 2, -(-fast // 2) - 1
+    decoded = 0
+    for info in infos:
+        seq = load_sequence(info, max_gt=3)
+        assert traced.take()["counters"] == {}
+        for k, _ in enumerate(data.train_windows(seq, fast=fast, n_center=n_center)):
+            touched = min(seq.length, (k + 1) * n_center + halo_right)
+            frames = traced.take()["counters"].get("data.frames", 0)
+            decoded += frames
+            assert frames == touched - (min(seq.length, k * n_center + halo_right) if k else 0)
+            held = sorted(seq._frames)  # the decoded frames the sequence still holds
+            assert held == list(range(max(0, (k + 1) * n_center - halo_left), touched))
+            assert len(held) <= n_center + fast - 1
+    assert decoded == sum(len(info.images) for info in infos) == 16
+
+
+class HostPipe:
+    """What `extract_masks` and `extract_rpn_proposals` ask of a pipeline,
+    answered on the host."""
+
+    cfg = CFG
+    device = torch.device("cpu")
+
+    def infer_sequence(self, images, instance_masks=False):
+        return [{"union_mask": np.zeros(images.shape[1:3], bool)} for _ in images]
+
+    def compute_sequence_features(self, images):
+        return None, torch.zeros((len(images), 4, 4)), torch.zeros((len(images), 4), dtype=torch.bool)
+
+
+class HostDeviceParallel:
+    def __init__(self, pipe, devices, instance_masks=False):
+        self.pipe, self.n = pipe, len(devices)
+
+    def infer_group(self, clips):
+        return [self.pipe.infer_sequence(clip) for clip in clips]
+
+
+@pytest.mark.parametrize("route", ["serial", "device_parallel", "proposals"])
+def test_whole_sequence_readers_decode_on_the_prefetch_thread(traced, tmp_path, monkeypatch, route):
+    """Evaluation (serial and device-list routes) and the proposal dump
+    read whole sequences: every frame is decoded on the prefetch thread,
+    none on the thread that drives the device."""
+    from slowfast_vos_tpu_torch.eval import glue
+    from slowfast_vos_tpu_torch.train.pretrain import extract_rpn_proposals
+
+    root = str(tmp_path / "davis")
+    data.make_synthetic_davis(root, num_sequences=2, frames=3, hw=HW)
+    traced.take()
+    if route == "proposals":
+        extract_rpn_proposals(HostPipe(), davis_root=root, output_path=str(tmp_path / "p.npz"))
+    else:
+        monkeypatch.setattr(glue, "DeviceParallelInference", HostDeviceParallel)
+        devices = [torch.device("cpu")] * 2 if route == "device_parallel" else None
+        glue.extract_masks(HostPipe(), root, str(tmp_path / "out"), subset="train", year="2017", devices=devices)
+    snap = traced.take()
+    assert snap["counters"]["data.frames"] == 6
+    producers = {s["thread"] for s in by_name(snap, "prefetch.put_wait")}
+    for name in ("data.decode_images", "data.decode_masks"):
+        spans = by_name(snap, name)
+        assert len(spans) == 6 and {s["thread"] for s in spans} == producers
+        assert snap["main_thread"] not in producers
 
 
 def tiny_pipeline():
@@ -369,9 +449,12 @@ def tot(total_s, self_s=None, calls=1):
 def test_training_readings_on_a_synthetic_snapshot():
     mod = trace_cell()
     window = snapshot(
-        totals={"data.load_sequence": tot(1.4), "train.stage_batch": tot(0.5), "prefetch.put_wait": tot(3.0)},
+        totals={"data.load_sequence": tot(0.001, calls=2), "data.decode_images": tot(0.6, calls=70),
+                "data.decode_masks": tot(1.3, calls=70), "train.stage_batch": tot(0.5), "prefetch.put_wait": tot(3.0)},
         counters={"data.frames": 70, "train.steps": 100},
-        spans=[{"name": "prefetch.put_wait", "thread": 2, "start_ns": -1_000_000_000, "end_ns": 500_000_000}],
+        # a decode open across the window's start: its 0.5 s before it are not the window's
+        spans=[{"name": "prefetch.put_wait", "thread": 2, "start_ns": -1_000_000_000, "end_ns": 500_000_000},
+               {"name": "data.decode_masks", "thread": 2, "start_ns": -500_000_000, "end_ns": 10_000_000}],
         open=[{"name": "prefetch.put_wait", "thread": 2, "start_ns": 9_000_000_000, "id": 9}],
         stages={"train.gradient[4]": {"replays": 100, "samples": 50, "unread": 0,
                                       "ms": {"backbone": 500.0, "loss": 100.0, "backward": 1400.0}},
