@@ -154,6 +154,19 @@ Phases, each fatal on failure:
              `F.batch_norm` (forward and backward) per call at P2's `bn_s1`
              [4, 192, 192, 336] and summed over the step, against the
              bounds.
+14. k7     - K7, ViTDet's attention with decomposed relative positions
+             (`csrc/attention.cu`), at ViTDet-B's shapes (12 heads
+             of 64; global blocks N = 4096, window blocks 25 windows of
+             N = 196 a frame): against the plain version in float32 on the
+             same bf16 inputs (2 frames), one launch a call by the counter
+             and one device kernel by name, no allocation of N^2 elements;
+             device time a frame at a superchunk's 34 frames, against the
+             bound (operations at 989 TFLOP/s against q, k, v, o and both
+             terms at 3.35 TB/s), the plain version's (2 frames), and as a
+             yardstick only `scaled_dot_product_attention` with the bias
+             materialized (`library_ms`, 2 frames; the port never calls
+             it).
+             `python3 chip_smoke.py k7` runs this phase alone.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -2512,6 +2525,71 @@ def phase_bn(pipeline_mod, train_mod, data, counts: dict) -> list:
     ]
 
 
+K7_SHAPES = {"global": (1, 64), "window": (25, 14)}  # (windows a frame, grid side) of ViTDet-B's blocks
+K7_FRAMES = 34  # a first superchunk's frames through the backbone
+
+
+def k7_inputs(patt, frames: int, windows: int, grid: int, seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((frames * windows, grid * grid, 3, 12, 64), generator=g, device="cuda").bfloat16()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    tables = [0.1 * torch.randn((2 * grid - 1, 64), generator=g, device="cuda") for _ in range(2)]
+    return (q, k, v, *patt.rel_pos_terms(q, *tables, (grid, grid)))
+
+
+def k7_bound_ms(windows: int, grid: int) -> tuple[float, str]:
+    """K7's least time a frame: 12 heads x windows of N tokens, 4 N^2 64
+    operations and 2 N^2 bias adds a head at 989 TFLOP/s, against q, k, v,
+    o and both terms read or written once (bf16) at 3.35 TB/s."""
+    n, heads = grid * grid, 12 * windows
+    ops = heads * (4 * n * n * 64 + 2 * n * n)
+    nbytes = heads * (4 * n * 64 + 2 * n * grid) * 2
+    flops_ms, bytes_ms = ops / 989e12 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(flops_ms, bytes_ms), ("operations" if flops_ms > bytes_ms else "bytes")
+
+
+def phase_k7() -> list:
+    """Phase 14 (module docstring). Returns the records "k7_global" and
+    "k7_window"."""
+    from slowfast_vos_tpu_torch.ops import attention as patt
+
+    records = []
+    for kind, (windows, grid) in K7_SHAPES.items():
+        small = k7_inputs(patt, 2, windows, grid)
+        before = patt.launches["attention", kind]
+        got = patt.attention(*small, 0.125, kind)
+        check(patt.launches["attention", kind] == before + 1, f"k7 {kind}: one launch a call")
+        want = patt.attention_plain(*(t.float() for t in small), 0.125)
+        err = float((got.float() - want).abs().max())
+        check(err <= 1e-2 + 2.0**-7 * float(want.abs().max()), f"k7 {kind}: max abs error {err}")
+        by_name, per_call = kernel_ms_by_name(lambda: patt.attention(*small, 0.125, kind), ("k7_rel_pos_attention",))
+        check(per_call == 1, f"k7 {kind}: {per_call} device kernels a call")
+        full = k7_inputs(patt, K7_FRAMES, windows, grid, seed=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = patt.attention(*full, 0.125, kind)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - base
+        check(grown <= out.numel() * out.element_size() + (1 << 20), f"k7 {kind}: allocated {grown} B")
+        del out
+        ms = device_ms(lambda: patt.attention(*full, 0.125, kind), runs=10) / K7_FRAMES
+        bound, bound_by = k7_bound_ms(windows, grid)
+        plain_ms = device_ms(lambda: patt.attention_plain(*small, 0.125), runs=3) / 2
+        b, heads, n, _ = small[0].shape
+        bias = (small[3][..., :, None] + small[4][..., None, :]).reshape(b, heads, n, n)
+        library_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            small[0], small[1], small[2], attn_mask=bias, scale=0.125), runs=5) / 2
+        del bias
+        records.append({"name": f"k7_{kind}", "shape": [K7_FRAMES * windows, 12, grid * grid, 64],
+                        "max_abs_err": err, "kernels_by_name": by_name,
+                        "ms_per_frame": ms, "bound_ms_per_frame": bound, "bound_by": bound_by,
+                        "roofline_pct": 100 * bound / ms, "plain_ms_per_frame": plain_ms,
+                        "library_ms_per_frame": library_ms, "peak_extra_bytes": grown})
+        log(json.dumps(records[-1]))
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -2571,6 +2649,9 @@ def main() -> int:
     t0 = time.perf_counter()
     records += phase_bn(pipeline_mod, train_mod, data, train["counts"])
     log(f"bn: phase 13 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k7 = phase_k7()
+    log(f"k7: phase 14 in {time.perf_counter() - t0:.1f} s")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
         key = {"nms": "nms", "bn": "bn", "bn_backward": ("backward", "bn")}.get(
@@ -2588,7 +2669,7 @@ def main() -> int:
     log(json.dumps({"transport_stem": {k: v for k, v in transport_stem.items() if k != "counts"}}))
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"train_graphs": train_graphs}))
-    log(json.dumps({"kernels": records}))
+    log(json.dumps({"kernels": records + k7}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2601,6 +2682,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["k7"]:
+        sys.exit(0 if torch.cuda.is_available() and phase_k7() else 1)
     if sys.argv[1:2] == [PARALLEL_WORKER]:
         sys.exit(parallel_worker(sys.argv[2], sys.argv[3], Path(sys.argv[4])))
     sys.exit(main())

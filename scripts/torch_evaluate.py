@@ -22,6 +22,7 @@ def main(argv=None):
     p.add_argument("--subset", default="val")
     p.add_argument("--sequence", default=None, help="single sequence = semi-supervised task")
     p.add_argument("--original-hw", type=int, nargs=2, default=(480, 854))
+    cli.add_arch_argument(p)
     cli.add_device_argument(p)
     args = p.parse_args(argv)
     # Multi-process launches (torchrun, SLURM) join the process group here;
@@ -30,7 +31,7 @@ def main(argv=None):
 
     from slowfast_vos_tpu_torch.eval.glue import davis_evaluation
 
-    pipe, model = cli.build(args.slow, args.fast, args.original_hw, device=args.device)
+    pipe, model = cli.build(args.slow, args.fast, args.original_hw, device=args.device, **cli.arch_kwargs(args))
     report = cli.init_model(model, 0, args.checkpoint)
 
     jf, summary, per_object, wall = davis_evaluation(

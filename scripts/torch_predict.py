@@ -22,12 +22,13 @@ def main(argv=None):
     p.add_argument("--subset", default="val")
     p.add_argument("--save-all", action="store_true")
     p.add_argument("--original-hw", type=int, nargs=2, default=(480, 854))
+    cli.add_arch_argument(p)
     cli.add_device_argument(p)
     args = p.parse_args(argv)
 
     from slowfast_vos_tpu_torch.eval.visualize import evaluate_with_visualization
 
-    pipe, model = cli.build(args.slow, args.fast, args.original_hw, device=args.device)
+    pipe, model = cli.build(args.slow, args.fast, args.original_hw, device=args.device, **cli.arch_kwargs(args))
     report = cli.init_model(model, 0, args.checkpoint)
     miou = evaluate_with_visualization(
         pipe, davis_root=args.davis_root, out_dir=args.out_dir,

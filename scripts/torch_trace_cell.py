@@ -35,8 +35,12 @@ Readings (ms and % as named; None where the run has nothing to read):
   (after `pipeline.fetch_wait`) over real frames;
 * `backbone_device_ms_per_frame.infer`, `slowfast_device_ms_per_frame.infer`,
   `heads_device_ms_per_frame.infer`: the superchunk graphs' `transform` +
-  `backbone`, `slowfast`, and `rpn` + `roi_heads` + `finalize` stage times,
-  weighted as above, over real frames;
+  `backbone` (with ViTDet's stages below), `slowfast`, and `rpn` +
+  `roi_heads` + `finalize` stage times, weighted as above, over real frames;
+* `vit_window_device_ms_per_frame.infer`, `vit_global_device_ms_per_frame.infer`,
+  `pyramid_device_ms_per_frame.infer` (ViTDet cells; 0 elsewhere): the
+  stage marks `vit.window` and `vit.global` (one a block, summed by kind)
+  and `pyramid`, weighted as above, over real frames;
 * `graph_capture_s`: `graphs.capture` seconds in set-up.
 
 Needs CUDA; exits 1 without.
@@ -53,10 +57,14 @@ T0 = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 TRAIN_STAGES = ("transform", "backbone", "rpn", "slowfast", "roi_heads", "loss", "backward", "update")
+VIT_STAGES = ("vit.patch_embed", "vit.window", "vit.global", "pyramid")  # ViTDet's backbone (`models/vit.py`)
 INFER_STAGES = {
-    "backbone_device_ms_per_frame.infer": ("transform", "backbone"),
+    "backbone_device_ms_per_frame.infer": ("transform", *VIT_STAGES, "backbone"),
     "slowfast_device_ms_per_frame.infer": ("slowfast",),
     "heads_device_ms_per_frame.infer": ("rpn", "roi_heads", "finalize"),
+    "vit_window_device_ms_per_frame.infer": ("vit.window",),
+    "vit_global_device_ms_per_frame.infer": ("vit.global",),
+    "pyramid_device_ms_per_frame.infer": ("pyramid",),
 }
 
 
@@ -218,7 +226,7 @@ def main(argv=None) -> int:
         print("torch_trace_cell: CUDA is not available", file=sys.stderr)
         return 1
     spec = harness.cell_spec(args.workload)
-    kind = spec["traffic"]["driver"]
+    kind = "infer" if spec["traffic"]["driver"].startswith("infer") else "train"  # infer, infer_vitdet; train
     driver = importlib.import_module(f"vosbench.drivers.{kind}")
     snaps, extra = {}, {}
     setup, window = driver.Cell.setup, driver.Cell.window

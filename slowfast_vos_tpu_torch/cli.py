@@ -16,6 +16,21 @@ def add_device_argument(parser) -> None:
     )
 
 
+def add_arch_argument(parser) -> None:
+    """`--arch`, checked by `build` against `models/segmentation.py::ARCHS`."""
+    parser.add_argument(
+        "--arch", default=None,
+        help="the detector under SlowFast: resnet50-fpn (default), torchvision's ResNet-50 FPN Mask R-CNN (the "
+        "reference's), or vitdet-b, ViTDet-B (windowed and global attention, simple feature pyramid, LN heads; "
+        "inference only)",
+    )
+
+
+def arch_kwargs(args) -> dict:
+    """`build`'s arguments for `args.arch`: none where it was not given."""
+    return {} if args.arch is None else {"arch": args.arch}
+
+
 def init_distributed(device: str) -> bool:
     """`parallel.distributed.init_distributed_mode` for a CLI that runs on
     `device`: a no-op returning False in a single process; under a
@@ -26,10 +41,12 @@ def init_distributed(device: str) -> bool:
     return init_distributed_mode(backend="gloo" if device == "cpu" else None)
 
 
-def build(slow: int, fast: int, original_hw, *, device: str, dtype=None, use_slow_fast: bool = True):
+def build(slow: int, fast: int, original_hw, *, device: str, dtype=None, use_slow_fast: bool = True,
+          arch: str = "resnet50-fpn"):
     """(pipe, model) of `models.pipeline.build_pipeline` with torch's
     default init: bf16 on the card, float32 on the CPU, unless `dtype` is
-    given."""
+    given. `arch` as `build_pipeline` takes it (an unknown one raises
+    ValueError)."""
     import torch
 
     from slowfast_vos_tpu_torch.models.pipeline import build_pipeline
@@ -37,7 +54,7 @@ def build(slow: int, fast: int, original_hw, *, device: str, dtype=None, use_slo
     if dtype is None:
         dtype = torch.bfloat16 if device == "cuda" else torch.float32
     return build_pipeline(
-        slow, fast, tuple(original_hw), dtype=dtype, device=device, use_slow_fast=use_slow_fast
+        slow, fast, tuple(original_hw), dtype=dtype, device=device, use_slow_fast=use_slow_fast, arch=arch
     )
 
 

@@ -17,7 +17,7 @@ from slowfast_vos_tpu_torch.data.davis import FRAME_FIELDS, LazySequence
 from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 
-def train_windows(seq, fast: int, n_center: int = 2):
+def train_windows(seq, fast: int, n_center: int = 2, wanted=None):
     """Yield training batches covering all frames of a sequence in order.
 
     seq: a `LazySequence`, or a dict of images [T, H, W, 3] uint8,
@@ -31,7 +31,11 @@ def train_windows(seq, fast: int, n_center: int = 2):
     its halo and centres, each later one its `n_center` new frames, and
     the frames behind the next window's left halo are forgotten, so the
     sequence holds at most one window of decoded frames. The windows are
-    the same either way."""
+    the same either way.
+
+    `wanted(k)`, where given, says whether this caller uses the sequence's
+    k-th window: one it does not use is yielded as None and reads no frame
+    (a data-parallel rank cuts only its own windows)."""
     if isinstance(seq, LazySequence):
         t, frame, forget = seq.length, seq.frame, seq.forget
     else:
@@ -46,7 +50,11 @@ def train_windows(seq, fast: int, n_center: int = 2):
     halo_left = fast // 2
     halo_right = -(-fast // 2) - 1
     w = n_center + fast - 1
-    for start in range(0, t, n_center):
+    for k, start in enumerate(range(0, t, n_center)):
+        if wanted is not None and not wanted(k):
+            forget(start + n_center - halo_left)
+            yield None
+            continue
         with TRACER.span("data.window"):
             # window frame indices (may run off both ends)
             idxs = np.arange(start - halo_left, start + n_center + halo_right)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from slowfast_vos_tpu_torch.models.config import DetectionConfig
-from slowfast_vos_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear, nchw, nhwc
+from slowfast_vos_tpu_torch.models.layers import LN_EPS, Conv2d, ConvTranspose2d, Linear, channel_norm, nchw, nhwc
 from slowfast_vos_tpu_torch.models.matching import BELOW_LOW, match_to_gt, sample_balanced
 from slowfast_vos_tpu_torch.models.rpn import smooth_l1
 from slowfast_vos_tpu_torch.ops.boxes import box_iou, clip_boxes, decode_boxes, encode_boxes, remove_small_boxes_mask
@@ -38,6 +38,26 @@ class BoxHead(nn.Module):
         return F.relu(self.fc7(F.relu(self.fc6(x))))
 
 
+class ConvBoxHead(nn.Module):
+    """detectron2's FastRCNNConvFCHead with `conv_norm="LN"` (ViTDet's
+    4conv1fc): [N, 7, 7, C] -> 4x (3x3 conv without bias, channel LayerNorm,
+    relu) -> torch's CHW flatten -> fc 1024 -> relu."""
+
+    def __init__(self, in_channels: int = 256, pooled: int = 7, representation: int = 1024, convs: int = 4):
+        super().__init__()
+        self.convs = convs
+        for i in range(1, convs + 1):
+            self.add_module(f"conv{i}", Conv2d(in_channels, in_channels, 3, padding=1, bias=False))
+            self.add_module(f"norm{i}", nn.LayerNorm(in_channels, eps=LN_EPS))
+        self.fc1 = Linear(in_channels * pooled * pooled, representation)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        x = nchw(pooled).contiguous(memory_format=torch.channels_last)
+        for i in range(1, self.convs + 1):
+            x = F.relu(channel_norm(getattr(self, f"conv{i}")(x), getattr(self, f"norm{i}")))
+        return F.relu(self.fc1(x.contiguous().flatten(1)))  # torch's CHW flatten
+
+
 class BoxPredictor(nn.Module):
     """torchvision FastRCNNPredictor: class logits and per-class box deltas."""
 
@@ -53,16 +73,24 @@ class BoxPredictor(nn.Module):
 
 
 class MaskHead(nn.Module):
-    """torchvision MaskRCNNHeads: 4x (3x3 conv 256 + relu), on NCHW."""
+    """torchvision MaskRCNNHeads: 4x (3x3 conv 256 + relu), on NCHW. With
+    `norm="ln"` (ViTDet's head, detectron2 `conv_norm="LN"`) each conv has
+    no bias and a channel LayerNorm `mask_fcn<i>_norm` before its relu."""
 
-    def __init__(self, channels: int = 256):
+    def __init__(self, channels: int = 256, norm: str | None = None):
         super().__init__()
+        self.norm = norm
         for i in range(1, 5):
-            self.add_module(f"mask_fcn{i}", Conv2d(channels, channels, 3, padding=1))
+            self.add_module(f"mask_fcn{i}", Conv2d(channels, channels, 3, padding=1, bias=norm is None))
+            if norm == "ln":
+                self.add_module(f"mask_fcn{i}_norm", nn.LayerNorm(channels, eps=LN_EPS))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(1, 5):
-            x = F.relu(getattr(self, f"mask_fcn{i}")(x))
+            x = getattr(self, f"mask_fcn{i}")(x)
+            if self.norm == "ln":
+                x = channel_norm(x, getattr(self, f"mask_fcn{i}_norm"))
+            x = F.relu(x)
         return x
 
 
@@ -79,12 +107,15 @@ class MaskPredictor(nn.Module):
 
 
 class RoIHeads(nn.Module):
-    def __init__(self, num_classes: int, dtype: torch.dtype = torch.bfloat16):
+    """`vitdet=True`: ViTDet's 4conv1fc box head and LayerNorm mask head,
+    with torchvision's predictors."""
+
+    def __init__(self, num_classes: int, dtype: torch.dtype = torch.bfloat16, vitdet: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.box_head = BoxHead()
+        self.box_head = ConvBoxHead() if vitdet else BoxHead()
         self.box_predictor = BoxPredictor(num_classes)
-        self.mask_head = MaskHead()
+        self.mask_head = MaskHead(norm="ln" if vitdet else None)
         self.mask_predictor = MaskPredictor(num_classes)
 
     def box_predict(self, pooled: torch.Tensor):

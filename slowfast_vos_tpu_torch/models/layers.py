@@ -65,6 +65,21 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+LN_EPS = 1e-6  # ViTDet's LayerNorms (detectron2's `LayerNorm` and `partial(nn.LayerNorm, eps=1e-6)`)
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """`norm` over x's last dim, computing in x's dtype (float32 statistics
+    on the card)."""
+    return F.layer_norm(x, norm.normalized_shape, norm.weight.to(x.dtype), norm.bias.to(x.dtype), norm.eps)
+
+
+def channel_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """detectron2's channel `LayerNorm` of an NCHW tensor, taken over the NHWC
+    view's last dim (contiguous where x is channels-last)."""
+    return nchw(layer_norm(nhwc(x), norm))
+
+
 def nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC [..., H, W, C] view -> NCHW view (channels-last memory when x is
     contiguous NHWC)."""

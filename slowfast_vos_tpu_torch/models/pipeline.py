@@ -36,7 +36,8 @@ Tracer spans (`utils/profiling.py::TRACER`): `pipeline.infer_sequence` (a
 unit of work) > `pipeline.infer_chunks` > `pipeline.chunk_inputs`,
 `graphs.run`; `pipeline.fetch` > `pipeline.fetch_wait` (the copies to the
 host). Counter: `pipeline.frames` (real frames). Stage marks of `_superchunk`, read under graphs:
-`transform`, `backbone`, `rpn`, `slowfast`, `roi_heads`, `finalize`.
+`transform`, `backbone`, `rpn`, `slowfast`, `roi_heads`, `finalize`; with `arch="vitdet-b"` the
+backbone's own (`models/vit.py`) come before `backbone`.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from slowfast_vos_tpu_torch.models.resnet_fpn import FPN_STRIDES
 from slowfast_vos_tpu_torch.models.rpn import filter_proposals
 from slowfast_vos_tpu_torch.models.segmentation import SlowFastMaskRCNN
 from slowfast_vos_tpu_torch.models.transform import ImageTransform, rgb_to_yuv420
+from slowfast_vos_tpu_torch.models.vit import ViTConfig
 from slowfast_vos_tpu_torch.ops.constants import device_constant
 from slowfast_vos_tpu_torch.ops.paste_masks import paste_masks_in_image
 from slowfast_vos_tpu_torch.ops.roi_align import ROI_SCALES, multiscale_roi_align
@@ -343,11 +345,13 @@ def build_pipeline(
     *,
     num_classes: int = 2,
     dtype: torch.dtype = torch.bfloat16,
-    min_size: int = 800,
-    max_size: int = 1333,
+    min_size: int | None = None,
+    max_size: int | None = None,
     cfg: DetectionConfig | None = None,
     use_slow_fast: bool = True,
     s2d_stem: bool = False,
+    arch: str = "resnet50-fpn",
+    vit: ViTConfig | None = None,
     device: str | torch.device | None = None,
     **kw,
 ) -> tuple[Pipeline, SlowFastMaskRCNN]:
@@ -356,13 +360,23 @@ def build_pipeline(
     compute runs in `dtype`. Weights are torch's default init until the
     caller loads a state dict or calls `init_weights`. `use_slow_fast=False`
     builds the plain per-frame Mask R-CNN (no SlowFast module);
-    `s2d_stem=True` the space-to-depth stem (`models/resnet_fpn.py`)."""
+    `s2d_stem=True` the space-to-depth stem (`models/resnet_fpn.py`).
+    The image is resized to `min_size` / `max_size`, by default 800 / 1333
+    (torchvision's). `arch="vitdet-b"` builds ViTDet-B's backbone and heads
+    (`models/vit.py`; `vit`, default ViTDet-B's widths) over a square canvas
+    of `vit.image`, the image resized by detectron2's rule to `min_size` /
+    `max_size`, by default `vit.image` both."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_pipeline: CUDA is not available; pass device='cpu' to run on the CPU")
     cfg = cfg or DetectionConfig(num_classes=num_classes)
-    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype, use_slow_fast, s2d_stem).to(device)
-    transform = ImageTransform(original_hw, min_size=min_size, max_size=max_size)
+    vit = vit or ViTConfig()
+    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype, use_slow_fast, s2d_stem,
+                             arch=arch, vit=vit).to(device)
+    square = vit.image if arch == "vitdet-b" else None
+    min_size = min_size or square or 800
+    max_size = max_size or square or 1333
+    transform = ImageTransform(original_hw, min_size=min_size, max_size=max_size, square=square)
     return Pipeline(model, transform, **kw), model
 
 

@@ -21,21 +21,29 @@ from slowfast_vos_tpu_torch.ops.nms import nms_mask, sort_desc, top_k_after_nms
 
 
 class RPNHead(nn.Module):
-    """Shared 3x3 conv + 1x1 objectness / 1x1 box-delta heads per FPN level."""
+    """Shared 3x3 conv + 1x1 objectness / 1x1 box-delta heads per FPN level.
+    `num_convs=2` is detectron2's StandardRPNHead with `conv_dims=[-1, -1]`
+    (ViTDet): two 3x3 convs, each with its relu, under `conv.0`, `conv.1`."""
 
-    def __init__(self, channels: int = 256, num_anchors: int = 3):
+    def __init__(self, channels: int = 256, num_anchors: int = 3, num_convs: int = 1):
         super().__init__()
         self.num_anchors = num_anchors
-        self.conv = Conv2d(channels, channels, 3, padding=1)
+        if num_convs == 1:
+            self.conv = Conv2d(channels, channels, 3, padding=1)
+        else:
+            self.conv = nn.ModuleList([Conv2d(channels, channels, 3, padding=1) for _ in range(num_convs)])
         self.cls_logits = Conv2d(channels, num_anchors, 1)
         self.bbox_pred = Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feats: list[torch.Tensor]):
         """feats: NHWC levels [T, H, W, C] -> (logits [T, H, W, A],
         deltas [T, H, W, A, 4]), in the compute dtype."""
+        convs = self.conv if isinstance(self.conv, nn.ModuleList) else [self.conv]
         logits, deltas = [], []
         for f in feats:
-            t = F.relu(self.conv(nchw(f)))
+            t = nchw(f)
+            for conv in convs:
+                t = F.relu(conv(t))
             logits.append(nhwc(self.cls_logits(t)))
             d = nhwc(self.bbox_pred(t))
             deltas.append(d.reshape(*d.shape[:-1], self.num_anchors, 4))
@@ -45,9 +53,9 @@ class RPNHead(nn.Module):
 class RegionProposalNetwork(nn.Module):
     """Holds the head under torchvision's `rpn.head` name."""
 
-    def __init__(self):
+    def __init__(self, num_convs: int = 1):
         super().__init__()
-        self.head = RPNHead()
+        self.head = RPNHead(num_convs=num_convs)
 
     def forward(self, feats):
         return self.head(feats)

@@ -11,6 +11,10 @@ With `use_slow_fast=False` (the Mask R-CNN fine-tune, JAX
 the raw FPN levels, and the state dict is a plain Mask R-CNN's. With
 `s2d_stem=True` the backbone's conv1 is the space-to-depth stem's
 ([64, 12, 4, 4], under the same name `backbone.body.conv1.weight`).
+With `arch="vitdet-b"` the backbone is ViTDet-B's ViT and simple feature
+pyramid (`models/vit.py`), the RPN head has two convs and the RoI heads
+are ViTDet's (4conv1fc box head, LayerNorm mask head): the same NHWC P2-P6,
+SlowFast and RoI pools run over it.
 Orchestration lives in `pipeline.py` (inference) and `train/train_step.py`
 (training). Only the SlowFast module behaves differently in train mode
 (its BatchNorms); the frozen backbone's are buffers.
@@ -25,11 +29,13 @@ from slowfast_vos_tpu_torch.models.heads import RoIHeads
 from slowfast_vos_tpu_torch.models.resnet_fpn import ResNet50FPN
 from slowfast_vos_tpu_torch.models.rpn import RegionProposalNetwork
 from slowfast_vos_tpu_torch.models.slowfast import SlowFastTemporal
+from slowfast_vos_tpu_torch.models.vit import SimpleFeaturePyramid, ViTConfig
 
 # The top-level modules the default training updates (`segmentation.py:31`,
 # whose slow_fast, box_head and mask_head are this port's slow_fast and
 # roi_heads).
 TRAINABLE_TOPLEVEL = ("slow_fast", "roi_heads")
+ARCHS = ("resnet50-fpn", "vitdet-b")
 
 
 class SlowFastMaskRCNN(nn.Module):
@@ -40,13 +46,18 @@ class SlowFastMaskRCNN(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         use_slow_fast: bool = True,
         s2d_stem: bool = False,
+        arch: str = "resnet50-fpn",
+        vit: ViTConfig = ViTConfig(),
     ):
         super().__init__()
-        self.cfg, self.sf, self.dtype = cfg, sf, dtype
+        if arch not in ARCHS:
+            raise ValueError(f"arch must be one of {ARCHS}, not {arch!r}")
+        self.cfg, self.sf, self.dtype, self.arch = cfg, sf, dtype, arch
         self.use_slow_fast = use_slow_fast
-        self.backbone = ResNet50FPN(dtype, s2d_stem)
-        self.rpn = RegionProposalNetwork()
-        self.roi_heads = RoIHeads(cfg.num_classes, dtype)
+        vitdet = arch == "vitdet-b"
+        self.backbone = SimpleFeaturePyramid(vit, dtype) if vitdet else ResNet50FPN(dtype, s2d_stem)
+        self.rpn = RegionProposalNetwork(num_convs=2 if vitdet else 1)
+        self.roi_heads = RoIHeads(cfg.num_classes, dtype, vitdet=vitdet)
         if use_slow_fast:
             self.slow_fast = SlowFastTemporal(sf.slow, sf.fast, dtype=dtype)
 

@@ -41,6 +41,19 @@ def resized_hw(orig_hw: tuple[int, int], min_size: int = 800, max_size: int = 13
     return math.floor(orig_hw[0] * s), math.floor(orig_hw[1] * s)
 
 
+def resized_hw_rounded(orig_hw: tuple[int, int], min_size: int, max_size: int) -> tuple[int, int]:
+    """detectron2's `ResizeShortestEdge.get_output_shape`: the short side to
+    `min_size`, then both scaled down if the long side passes `max_size`,
+    each rounded as `int(x + 0.5)` (DAVIS 480x854 at 1024 -> 576x1024)."""
+    h, w = orig_hw
+    scale = min_size / min(h, w)
+    newh, neww = (min_size, scale * w) if h < w else (scale * h, min_size)
+    if max(newh, neww) > max_size:
+        scale = max_size / max(newh, neww)
+        newh, neww = newh * scale, neww * scale
+    return int(newh + 0.5), int(neww + 0.5)
+
+
 def canvas_for(orig_hw: tuple[int, int], min_size: int = 800, max_size: int = 1333, divisor: int = 64) -> tuple[int, int]:
     """Static padded canvas: resized size rounded up to `divisor` (64 keeps the
     stride-64 P6 level exactly aligned)."""
@@ -50,19 +63,32 @@ def canvas_for(orig_hw: tuple[int, int], min_size: int = 800, max_size: int = 13
 
 @dataclasses.dataclass(frozen=True)
 class ImageTransform:
-    """Static-shape clip transform. All sizes resolved at construction."""
+    """Static-shape clip transform. All sizes resolved at construction.
+
+    `square`: ViTDet's input (detectron2 `ResizeShortestEdge(min_size,
+    max_size)` and `square_pad`): the resized extent rounded as detectron2
+    rounds it (`resized_hw_rounded`) and a `square` x `square` canvas,
+    zero padded after the normalization as the default canvas is."""
 
     original_hw: tuple[int, int]
     min_size: int = 800
     max_size: int = 1333
     divisor: int = 64
+    square: int | None = None
 
     @property
     def resized_hw(self) -> tuple[int, int]:
+        if self.square:
+            return resized_hw_rounded(self.original_hw, self.min_size, self.max_size)
         return resized_hw(self.original_hw, self.min_size, self.max_size)
 
     @property
     def canvas_hw(self) -> tuple[int, int]:
+        if self.square:
+            rh, rw = self.resized_hw
+            if max(rh, rw) > self.square:
+                raise ValueError(f"a {rh}x{rw} image does not fit the {self.square} square canvas")
+            return self.square, self.square
         return canvas_for(self.original_hw, self.min_size, self.max_size, self.divisor)
 
     def _to_canvas(self, x: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,10 @@ the source, and are built at first use: never when a module is imported.
 
 `launches` counts the kernel launches of every wrapper, by key: RoIAlign's
 forward by output size (7, 14), its backward by ("backward", output size),
-NMS by "nms". `chip_smoke.py` reads it to show that a path went through the
-kernels. Member threads (`parallel/mesh.py::on_members`) launch
+NMS by "nms", the train-mode BatchNorm by "bn" and ("backward", "bn"), and
+K7, the attention of `ops/attention.py`, by ("attention", "global") and
+("attention", "window"). `chip_smoke.py` reads it to show that a path went
+through the kernels. Member threads (`parallel/mesh.py::on_members`) launch
 concurrently, so each count is taken under a lock. A wrapper called while
 its thread captures a CUDA graph (`recording_launches`), or that launches
 onto a stream being captured from another thread (autograd's device thread

@@ -171,6 +171,8 @@ class Trainer:
         on_card = pipe.device.type == "cuda"
         if graphs and not on_card:
             raise ValueError(f"CUDA graphs run on a CUDA device; this trainer's model is on {pipe.device}")
+        if getattr(pipe.model, "arch", "resnet50-fpn") != "resnet50-fpn":
+            raise NotImplementedError(f"training runs arch='resnet50-fpn' only; {pipe.model.arch!r} runs inference")
         self.pipe = pipe
         self.model = pipe.model
         self.n_center = n_center

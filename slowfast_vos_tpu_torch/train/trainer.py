@@ -22,7 +22,13 @@ from slowfast_vos_tpu_torch.data.davis import DavisIndex, load_sequence
 from slowfast_vos_tpu_torch.data.windows import train_windows
 from slowfast_vos_tpu_torch.eval.glue import davis_evaluation
 from slowfast_vos_tpu_torch.models.pipeline import Pipeline, init_weights
-from slowfast_vos_tpu_torch.parallel.distributed import get_world_size, is_main_process, local_batch_slice, save_on_master
+from slowfast_vos_tpu_torch.parallel.distributed import (
+    get_rank,
+    get_world_size,
+    is_main_process,
+    local_batch_slice,
+    save_on_master,
+)
 from slowfast_vos_tpu_torch.parallel.sharded import make_sharded_train_step, replicate_state
 from slowfast_vos_tpu_torch.train.train_step import Trainer
 from slowfast_vos_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -69,6 +75,27 @@ def wrap_filled_groups(windows, size: int):
         yield group + [fill[i % len(fill)] for i in range(size - n_real)], n_real
 
 
+def epoch_windows(index, *, max_gt: int, fast: int, n_center: int, group_size: int = 1, rank: int = 0,
+                  limit: int | None = None):
+    """One epoch's training windows over `index` in its order, at most
+    `limit`. With a group of `group_size` ranks, a window that `rank` does
+    not take from `wrap_filled_groups(..., group_size)` (its position in
+    every group of `group_size`, and the first `group_size - 1` windows,
+    which fill a short last group) is yielded as None and not decoded."""
+    def ours(j):
+        return group_size == 1 or j < group_size - 1 or j % group_size == rank
+
+    count = 0
+    for info in index:
+        seq = load_sequence(info, max_gt=max_gt)
+        first = count
+        for batch in train_windows(seq, fast=fast, n_center=n_center, wanted=lambda k: ours(first + k)):
+            yield batch
+            count += 1
+            if limit and count >= limit:
+                return
+
+
 def train_unsupervised(
     pipe: Pipeline,
     *,
@@ -96,7 +123,8 @@ def train_unsupervised(
     and SlowFast's running statistics averaged, the production analogue of
     the reference's DDP wrap (`code/maskrcnn/train.py:102`). Every rank
     reads the epoch's windows in the same order and takes its own window of
-    each group of world-size windows (`local_batch_slice`). A trailing
+    each group of world-size windows (`local_batch_slice`), and decodes only
+    the windows it may take (`epoch_windows`). A trailing
     group smaller than the world is wrap-filled with windows from the start
     of the epoch, torch DistributedSampler's padding convention
     (`train.py:73-74`); the epoch loss sums each group's mean loss times
@@ -139,15 +167,6 @@ def train_unsupervised(
         )
         return {"jf": jf, "wall": wall, **summary}
 
-    def epoch_windows():
-        count = 0
-        for info in index:
-            seq = load_sequence(info, max_gt=pipe.cfg.max_gt)
-            for batch in train_windows(seq, fast=pipe.sf.fast, n_center=trainer.n_center):
-                yield batch
-                count += 1
-                if max_windows_per_epoch and count >= max_windows_per_epoch:
-                    return
 
     history = []
     best_jf = -1.0
@@ -165,7 +184,9 @@ def train_unsupervised(
             # when serial. The next windows are decoded and packed on a
             # background thread while the device steps; the order, and so
             # the trajectory, is unchanged.
-            with prefetch(epoch_windows(), depth=group_size + 1) as batches:
+            windows = epoch_windows(index, max_gt=pipe.cfg.max_gt, fast=pipe.sf.fast, n_center=trainer.n_center,
+                                    group_size=group_size, rank=get_rank(), limit=max_windows_per_epoch)
+            with prefetch(windows, depth=group_size + 1) as batches:
                 for group, n_real in wrap_filled_groups(batches, group_size):
                     (batch,) = group[local_batch_slice(group_size)] if data_parallel else group
                     loss = finite_loss(step(batch))  # the mean over the group

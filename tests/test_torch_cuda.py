@@ -6,7 +6,9 @@ the blocked NMS sweep on the card against the fixpoint, the NMS kernel
 graphs (`models/graphs.py`) against the eager path, bit for bit, the
 training step's (`train/graphs.py`) likewise, their stage marks under the
 tracer (`utils/profiling.py`), and K6, SlowFast's train-mode BatchNorm
-(`ops/batch_norm.py`), against its plain versions.
+(`ops/batch_norm.py`), against its plain versions, and K7, ViTDet's
+attention with decomposed relative positions (`ops/attention.py`), against
+its plain version, with ViTDet-B's pipeline on its graphs.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -25,6 +27,7 @@ from slowfast_vos_tpu_torch.models.slowfast import (
     batch_norm_normalize, batch_norm_train_backward_plain, batch_norm_train_plain,
 )
 from slowfast_vos_tpu_torch.models.transform import ImageTransform
+from slowfast_vos_tpu_torch.ops import attention as patt
 from slowfast_vos_tpu_torch.ops import batch_norm as pbn
 from slowfast_vos_tpu_torch.ops import nms as pnms
 from slowfast_vos_tpu_torch.ops import roi_align as pra
@@ -1016,3 +1019,72 @@ def test_batch_norm_plan_asks_for_the_librarys_shared_memory(cuda_device):
                 p = pbn.plan(258048, c, bf16, dy_stride, sms)
                 assert p.smem == lib.sfvos_bn_smem_bytes(int(bf16), int(dy_stride is not None), c, p.tile_rows, p.slots)
                 assert p.smem <= pbn.SMEM_MAX
+
+
+def _k7_inputs(device, frames, windows, grid, seed=0, heads=12):
+    """q, k, v as views of one [B, N, 3, heads, 64] qkv (strided, as the
+    ViT hands them to K7), and the two position terms, bf16."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, n = frames * windows, grid * grid
+    qkv = torch.randn((b, n, 3, heads, 64), generator=g, device=device).bfloat16()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    tables = [0.1 * torch.randn((2 * grid - 1, 64), generator=g, device=device) for _ in range(2)]
+    rel_h, rel_w = patt.rel_pos_terms(q, *tables, (grid, grid))
+    return q, k, v, rel_h, rel_w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,windows,grid", [("global", 1, 64), ("window", 25, 14)])
+def test_k7_matches_plain_version(cuda_device, kind, windows, grid):
+    """K7 at ViTDet-B's shapes (2 frames: global N = 4096, 25 windows of
+    N = 196 a frame), bf16, against the plain version in float32 on the same
+    bf16 inputs: within 1e-2 + 2^-7 |o|. The kernel rounds the
+    probabilities to bf16 before the second product (2^-9 each, over a
+    weighted mean of unit values) and its output once; the rest is f32."""
+    q, k, v, rel_h, rel_w = _k7_inputs(cuda_device, 2, windows, grid)
+    before = patt.launches["attention", kind]
+    got = patt.attention(q, k, v, rel_h, rel_w, 0.125, kind)
+    assert patt.launches["attention", kind] == before + 1
+    assert got.shape == (q.shape[0], q.shape[2], 12, 64) and got.dtype == torch.bfloat16
+    want = patt.attention_plain(*(t.float() for t in (q, k, v, rel_h, rel_w)), 0.125)
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=2.0**-7)
+    # Dropping a term moves the output far past that tolerance.
+    off = patt.attention_plain(*(t.float() for t in (q, k, v, rel_h, torch.zeros_like(rel_w))), 0.125)
+    assert (off - want).abs().max() > 0.1
+
+
+@pytest.mark.cuda
+def test_k7_allocates_no_square_of_the_tokens(cuda_device):
+    """A global call at N = 4096 allocates its output and nothing of N^2
+    elements (one head's logits in bf16 would be 33.5 MB)."""
+    q, k, v, rel_h, rel_w = _k7_inputs(cuda_device, 1, 1, 64)
+    patt.attention(q, k, v, rel_h, rel_w, 0.125, "global")  # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    out = patt.attention(q, k, v, rel_h, rel_w, 0.125, "global")
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert grown <= out.numel() * out.element_size() + (1 << 20) < 4096 * 4096 * 2
+
+
+@pytest.mark.cuda
+def test_vitdet_pipeline_graphs_match_eager_and_launch_k7(cuda_device):
+    """ViTDet-B + SlowFast 3-3 at its published widths on a 1024 canvas: a
+    40-frame sequence (first and carried superchunks) on the graph path
+    against the eager path, bit for bit; each superchunk's replay launches
+    K7 4 times global and 8 times windowed, K1 twice and K3 twice."""
+    torch.manual_seed(0)
+    pipe, model = build_pipeline(3, 3, (480, 854), arch="vitdet-b", min_size=1024, max_size=1024,
+                                 device=cuda_device, superchunk=32)
+    init_weights(model, 0)
+    clip = (np.random.default_rng(3).random((40, 480, 854, 3)) * 255).astype(np.uint8)
+    got = pipe.infer_sequence(clip)
+    assert pipe.graphs.captures == 2
+    for captured in pipe.graphs.graphs.values():
+        assert captured.launches[("attention", "global")] == 4 and captured.launches[("attention", "window")] == 8
+        assert captured.launches[7] == 1 and captured.launches[14] == 1 and captured.launches["nms"] == 2
+    want = Pipeline(model, pipe.transform, superchunk=32, graphs=False).infer_sequence(clip)
+    for g, w in zip(got, want):
+        for key in ("boxes", "scores", "labels", "valid", "union_mask"):
+            np.testing.assert_array_equal(g[key], w[key])

@@ -159,6 +159,39 @@ def id_mask(seed, dtype):
     return mask
 
 
+@pytest.mark.parametrize("group_size,rank", [(2, 1), (4, 0), (4, 3), (7, 5)])
+def test_a_rank_cuts_only_the_windows_it_takes(tmp_path, group_size, rank):
+    """`train/trainer.py::epoch_windows` for one rank of a data-parallel
+    group, on a 24-frame sequence in windows of 2 + 2: from
+    `wrap_filled_groups` and `local_batch_slice` it takes the same windows
+    as from the whole epoch (the wrap-filled last group included), every
+    other window is None, and past two ranks it decodes fewer frames (with
+    two, every other window of 4 frames at a stride of 2 covers them all)."""
+    from slowfast_vos_tpu_torch.train.trainer import epoch_windows, wrap_filled_groups
+    from slowfast_vos_tpu_torch.utils.profiling import TRACER
+
+    make_synthetic_davis(str(tmp_path), num_sequences=1, frames=24, hw=(36, 60), num_objects=2)
+    index = list(davis.DavisIndex(str(tmp_path), "train", year="2017"))
+
+    def taken(group, n):
+        TRACER.enable()
+        try:
+            windows = list(epoch_windows(index, max_gt=3, fast=3, n_center=2, group_size=group, rank=n))
+        finally:
+            TRACER.disable()
+            frames = TRACER.take()["counters"].get("data.frames", 0)
+        return windows, [g[n] for g, _ in wrap_filled_groups(windows, group)], frames
+
+    everything, _, all_frames = taken(1, 0)
+    mine, got, frames = taken(group_size, rank)
+    want = [g[rank] for g, _ in wrap_filled_groups(everything, group_size)]
+    assert len(mine) == len(everything) == 12 and len(got) == len(want) == -(-12 // group_size)
+    for g, w in zip(got, want):
+        assert_items_equal(g, w)
+    assert [w is None for w in mine] == [not (j < group_size - 1 or j % group_size == rank) for j in range(12)]
+    assert all_frames == 24 and (frames < 24 if group_size > 2 else frames == 24)
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int32])
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("max_gt,single_object", [(8, False), (3, False), (8, True)])
