@@ -13,7 +13,8 @@ Phases, each fatal on failure:
              ragged-tail superchunks) on the CUDA graph path, the default on
              the card (each key's first superchunk eager, then captured;
              later ones replayed), launch counts read around that run
-             (NMS twice per superchunk), frames/s, peak device memory; one
+             (NMS twice and K8 61 times per superchunk), frames/s, peak
+             device memory; one
              superchunk's real proposals and detection boxes, and the
              candidates of its two NMS calls, are kept (on the eager path,
              same model) for phases 4 and 6;
@@ -121,7 +122,7 @@ Phases, each fatal on failure:
              model at full width, at superchunk 8 over 20 frames and at 32
              over 64: bit for bit for both transports with and without
              instance masks (first and warm graph runs), launches counted per
-             replay, the host's part of a run under the sync debug mode
+             replay (K8's too), the host's part of a run under the sync debug mode
              "error" on both paths, peak device memory of each path, frames/s
              in turns and capture times; other weights loaded in place
              replayed with no new capture, a replaced parameter recaptured.
@@ -167,6 +168,18 @@ Phases, each fatal on failure:
              materialized (`library_ms`, 2 frames; the port never calls
              it).
              `python3 chip_smoke.py k7` runs this phase alone.
+15. k8     - K8, the backbone's convolution epilogue
+             (`csrc/conv_epilogue.cu`), at every call of the folded
+             ResNet-50 + FPN on a first superchunk (34 frames, 768x1344,
+             bf16; 61 calls): each call's shape against the backbone's own
+             (`cuda_build.launches["epilogue"]` over one forward); at each
+             call's shape, residual and ReLU, K8 against its plain version
+             (one bf16 ulp) and its device time in place, as the backbone runs it,
+             against its byte bound (x, the residual, y at 3.35 TB/s), the
+             plain version's and the form the fold replaced as a yardstick
+             (`x * w + b`, the residual add and the ReLU as PyTorch's own
+             passes, bf16); per call and summed over the superchunk.
+             `python3 chip_smoke.py k8` runs this phase alone.
 
 Prints one JSON line of kernel records, the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -202,6 +215,8 @@ LAUNCH_KEYS = (7, 14, ("backward", 7), ("backward", 14), "nms", *BN_KEYS)
 FORWARD_KEYS = (7, 14, "nms")  # what inference launches
 NO_SLOWFAST_KEYS = LAUNCH_KEYS[:5]  # what the Mask R-CNN fine-tune launches: it has no SlowFast
 BN_PER_STEP = 32  # K6 calls a train step makes, forward and backward: 8 BatchNorms x 4 FPN levels
+K8_PER_BACKBONE = 61  # K8 calls of a backbone forward: the stem, 16 blocks x 3, 4 downsamples, 8 FPN convolutions
+INFER_KEYS = (*FORWARD_KEYS, "epilogue")  # what a ResNet pipeline's inference launches, K8 included
 
 
 def log(msg: str) -> None:
@@ -452,12 +467,14 @@ def phase_main(ra, pipeline_mod) -> tuple[dict, dict, dict]:
     dets = pipe.infer_sequence(clip)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = {k: ra.launches[k] for k in FORWARD_KEYS}
+    counts = {k: ra.launches[k] for k in INFER_KEYS}
     chunks = -(-20 // SC)
     log(f"main: infer_sequence 20 frames 480x854 3-3 bf16 superchunk {SC}: first run {first_s:.3f} s, "
-        f"kernel launches pool7 {counts[7]}, pool14 {counts[14]}, nms {counts['nms']}")
+        f"kernel launches pool7 {counts[7]}, pool14 {counts[14]}, nms {counts['nms']}, epilogue {counts['epilogue']}")
     check(counts[7] > 0 and counts[14] > 0, f"a RoIAlign pool bypassed the kernel: {counts}")
     check(counts["nms"] == 2 * chunks, f"NMS: 2 launches per superchunk expected over {chunks}: {counts}")
+    check(counts["epilogue"] == K8_PER_BACKBONE * chunks,
+          f"K8: {K8_PER_BACKBONE} launches per superchunk expected over {chunks}: {counts}")
 
     check_detections(dets, 20, pipe.cfg.detections_per_img)
     n_valid = sum(int(det["valid"].sum()) for det in dets)
@@ -1926,13 +1943,14 @@ def phase_graphs(ra, pipeline_mod) -> dict:
         cell["capture_s"] = {f"{'yuv420' if k[0] else 'rgb'} {'carry' if k[3] else 'first'}"
                              f"{' instance masks' if k[4] else ''}": g.capture_s for k, g in pipe.graphs.graphs.items()}
         for g in pipe.graphs.graphs.values():
-            check(g.launches == {7: 1, 14: 1, "nms": 2}, f"a graph recorded {g.launches}")
+            check(g.launches == {7: 1, 14: 1, "nms": 2, "epilogue": K8_PER_BACKBONE}, f"a graph recorded {g.launches}")
         ra.launches.clear()
         pipe.infer_sequence(clip)
-        counts = {k: ra.launches[k] for k in FORWARD_KEYS}
-        check(counts == {7: chunks, 14: chunks, "nms": 2 * chunks}, f"graphs: {tag}: warm run launches {counts}")
-        log(f"graphs: {tag}: a warm graph run launched pool7 {counts[7]}, pool14 {counts[14]}, nms {counts['nms']} "
-            f"(per replay: pool7 1, pool14 1, nms 2); capture s " + ", ".join(f"{k} {v:.3f}" for k, v in cell["capture_s"].items()))
+        counts = {k: ra.launches[k] for k in INFER_KEYS}
+        check(counts == {7: chunks, 14: chunks, "nms": 2 * chunks, "epilogue": K8_PER_BACKBONE * chunks},
+              f"graphs: {tag}: warm run launches {counts}")
+        log(f"graphs: {tag}: a warm graph run launched pool7 {counts[7]}, pool14 {counts[14]}, nms {counts['nms']}, "
+            f"epilogue {counts['epilogue']} (per replay: pool7 1, pool14 1, nms 2, epilogue {K8_PER_BACKBONE}); capture s " + ", ".join(f"{k} {v:.3f}" for k, v in cell["capture_s"].items()))
 
         for name, p in (("eager", eager), ("graphs", pipe)):
             check(same_detections(host_part_without_sync(p, clip), runs["eager"]), f"graphs: {name} path under sync debug")
@@ -2056,10 +2074,11 @@ def train_record(train_mod, pipes, kw, calls, start, graphs: bool) -> tuple[dict
 
 def step_graph_launches(slow_fast: bool) -> dict:
     """What one gradient graph records, and a warm step launches: K1 and K5
-    at both pools and K3 once; with SlowFast, BN_PER_STEP launches of K6's
-    forward and of its backward (OSVOS's SF freeze too: its backbone
-    trains, so SlowFast's input needs its gradient)."""
-    out = {k: 1 for k in NO_SLOWFAST_KEYS}
+    at both pools and K3 once, K8 once a backbone convolution; with
+    SlowFast, BN_PER_STEP launches of K6's forward and of its backward
+    (OSVOS's SF freeze too: its backbone trains, so SlowFast's input needs
+    its gradient)."""
+    out = {k: 1 for k in NO_SLOWFAST_KEYS} | {"epilogue": K8_PER_BACKBONE}
     if slow_fast:
         out.update({k: BN_PER_STEP for k in BN_KEYS})
     return out
@@ -2179,7 +2198,7 @@ def train_graph_timings(ra, train_mod, pipe, kw, calls) -> dict:
 
     ra.launches.clear()
     tr.step(batch)
-    counts = {k: ra.launches[k] for k in LAUNCH_KEYS}
+    counts = {k: ra.launches[k] for k in (*LAUNCH_KEYS, "epilogue")}
     check(counts == step_graph_launches(True), f"train graphs: a warm graph step launched {counts}")
     out["warm_step_launches"] = {str(k): v for k, v in counts.items()}
     for name, fn in (("eager", eager_step), ("graphs", lambda: tr.step(batch))):
@@ -2590,6 +2609,106 @@ def phase_k7() -> list:
     return records
 
 
+K8_FRAMES = 34  # a first superchunk's frames through the backbone
+K8_LAYER1_CONV3 = (K8_FRAMES, 256, 192, 336)  # the shape the 80% aim is set at
+
+
+def k8_calls(pce, frames: int = K8_FRAMES) -> list:
+    """Each K8 call of one folded backbone forward at 768x1344, in order:
+    (name, [N, C, H, W], residual, relu), kept from the wrapper on the
+    backbone itself, and the launches the forward counted."""
+    from slowfast_vos_tpu_torch.models.resnet_fpn import ResNet50FPN
+
+    model = ResNet50FPN(torch.bfloat16).cuda()
+    calls, wrapped = [], pce.conv_epilogue_cuda
+
+    def keeping(x, bias, residual=None, relu=False, inplace=False):
+        calls.append((tuple(x.shape), residual is not None, relu))
+        return wrapped(x, bias, residual, relu, inplace)
+
+    pce.conv_epilogue_cuda = keeping
+    try:
+        before = pce.launches["epilogue"]
+        with torch.inference_mode():
+            model(torch.zeros((frames, *CANVAS, 3), device="cuda"))
+        torch.cuda.synchronize()
+        launched = pce.launches["epilogue"] - before
+    finally:
+        pce.conv_epilogue_cuda = wrapped
+    del model
+    return calls, launched
+
+
+def phase_k8() -> list:
+    """Phase 15 (module docstring). Returns the records "k8" (the
+    superchunk's 61 calls summed) and "k8_layer1_conv3"."""
+    from slowfast_vos_tpu_torch.ops import conv_epilogue as pce
+
+    calls, launched = k8_calls(pce)
+    check(len(calls) == launched == K8_PER_BACKBONE,
+          f"k8: {len(calls)} calls kept, {launched} launches, {K8_PER_BACKBONE} expected")
+    check(calls.count((K8_LAYER1_CONV3, True, True)) == 3, "k8: layer1's three conv3 calls at [34, 256, 192, 336]")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(shape, residual):
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16().contiguous(memory_format=torch.channels_last)
+        res = torch.randn(shape, generator=gen, device="cuda").bfloat16().contiguous(
+            memory_format=torch.channels_last) if residual else None
+        return x, 0.1 * torch.randn(shape[1], generator=gen, device="cuda"), res
+
+    def beyond_one_ulp(x, bias, res, relu) -> int:
+        """Elements where K8 and its plain version differ by more than one bf16 ulp."""
+        want = pce.conv_epilogue_plain(x, bias, res, relu).float()
+        got = pce.conv_epilogue_cuda(x, bias, res, relu).float()
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), want.abs()).clamp(min=2.0**-126))) - 7)
+        return int(((got - want).abs() > ulp).sum())
+
+    x, bias, res = inputs(K8_LAYER1_CONV3, True)
+    by_name, per_call = kernel_ms_by_name(lambda: pce.conv_epilogue_cuda(x, bias, res, True, inplace=True),
+                                          ("k8_conv_epilogue_kernel",))
+    check(per_call == 1, f"k8: {per_call} device kernels a call")
+    del x, bias, res
+
+    def yardstick(x, scale, shift, residual, relu):
+        y = x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y
+
+    rows, totals = [], collections.Counter()
+    for shape in dict.fromkeys(calls):
+        (n, c, h, w), residual, relu = shape
+        x, bias, res = inputs((n, c, h, w), residual)
+        beyond = beyond_one_ulp(x, bias, res, relu)
+        check(beyond == 0, f"k8: {beyond} elements beyond one bf16 ulp of the plain version at {shape}")
+        scale = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        count = calls.count(shape)
+        nbytes = x.numel() * x.element_size() * (3 if residual else 2)
+        row = {"shape": [n, c, h, w], "residual": residual, "relu": relu, "calls": count, "within_ulps": 1,
+               "ms": device_ms(lambda: pce.conv_epilogue_cuda(x, bias, res, relu, inplace=True), runs=10),
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+               "plain_ms": device_ms(lambda: pce.conv_epilogue_plain(x, bias, res, relu), runs=3),
+               "yardstick_ms": device_ms(lambda: yardstick(x, scale, bias, res, relu), runs=5)}
+        row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+        for key in ("ms", "bound_ms", "plain_ms", "yardstick_ms"):
+            totals[key] += count * row[key]
+        rows.append(row)
+        del x, bias, res
+    layer1 = next(r for r in rows if tuple(r["shape"]) == K8_LAYER1_CONV3 and r["residual"])
+    records = [
+        {"name": "k8", "frames": K8_FRAMES, "calls": len(calls), "launches": launched,
+         "ms_per_superchunk": totals["ms"], "ms_per_frame": totals["ms"] / K8_FRAMES,
+         "bound_ms_per_frame": totals["bound_ms"] / K8_FRAMES, "roofline_pct": 100 * totals["bound_ms"] / totals["ms"],
+         "plain_ms_per_frame": totals["plain_ms"] / K8_FRAMES,
+         "yardstick_ms_per_frame": totals["yardstick_ms"] / K8_FRAMES, "per_shape": rows},
+        {"name": "k8_layer1_conv3", "shape": list(K8_LAYER1_CONV3), "kernels_by_name": by_name,
+         **{k: layer1[k] for k in ("within_ulps", "ms", "bound_ms", "roofline_pct", "plain_ms", "yardstick_ms")}},
+    ]
+    for r in records:
+        log(json.dumps(r))
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -2652,6 +2771,9 @@ def main() -> int:
     t0 = time.perf_counter()
     k7 = phase_k7()
     log(f"k7: phase 14 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k7 += phase_k8()
+    log(f"k8: phase 15 in {time.perf_counter() - t0:.1f} s")
     for r in records:
         size = 7 if r["name"].endswith("pool7") else 14
         key = {"nms": "nms", "bn": "bn", "bn_backward": ("backward", "bn")}.get(
@@ -2684,6 +2806,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["k7"]:
         sys.exit(0 if torch.cuda.is_available() and phase_k7() else 1)
+    if sys.argv[1:2] == ["k8"]:
+        sys.exit(0 if torch.cuda.is_available() and phase_k8() else 1)
     if sys.argv[1:2] == [PARALLEL_WORKER]:
         sys.exit(parallel_worker(sys.argv[2], sys.argv[3], Path(sys.argv[4])))
     sys.exit(main())

@@ -15,7 +15,8 @@ from torch import nn
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with frozen statistics and affine parameters (torchvision
     `FrozenBatchNorm2d`, eps 1e-5): a per-channel scale and shift, folded in
-    float32 and applied in the activation dtype (`layers.py:20-31`)."""
+    float32 (`fold_frozen_batch_norms`, the ResNet's own fold) and applied
+    in the activation dtype (`layers.py:20-31`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -31,10 +32,27 @@ class FrozenBatchNorm2d(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = self.weight / torch.sqrt(self.running_var + self.eps)
-        w = inv.to(x.dtype)
-        b = (self.bias - self.running_mean * inv).to(x.dtype)
-        return x * w[:, None, None] + b[:, None, None]
+        scale, shift = fold_frozen_batch_norms(self)[self]
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def fold_frozen_batch_norms(module: nn.Module) -> dict[FrozenBatchNorm2d, tuple[torch.Tensor, torch.Tensor]]:
+    """Every `FrozenBatchNorm2d` under `module` as its float32 (scale, shift),
+    scale = weight * rsqrt(running_var + eps) and shift = bias - running_mean
+    * scale, computed over all their channels at once: one `cat` of the
+    buffers and four elementwise kernels, whatever their number. The
+    buffers are read, never changed; each pair is a view of two shared
+    tensors."""
+    bns = [m for m in module.modules() if isinstance(m, FrozenBatchNorm2d)]
+    eps = {m.eps for m in bns}
+    if len(eps) != 1:
+        raise ValueError(f"the frozen BatchNorms under one fold share one eps, not {sorted(eps)}")
+    stats = torch.cat([getattr(m, name) for name in ("weight", "bias", "running_mean", "running_var") for m in bns])
+    weight, bias, mean, var = stats.view(4, -1)
+    scale = weight * torch.rsqrt(var + eps.pop())
+    shift = torch.addcmul(bias, mean, scale, value=-1.0)
+    sizes = [m.weight.numel() for m in bns]
+    return dict(zip(bns, zip(scale.split(sizes), shift.split(sizes))))
 
 
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:

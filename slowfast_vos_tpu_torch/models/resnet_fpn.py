@@ -15,6 +15,16 @@ HWIO, as in JAX; `stem_weight_to_s2d` / `stem_weight_from_s2d` for the
 port's OIHW weights), so a checkpoint of either stem loads into a model of
 either (`utils/checkpoint.py::migrate_state_dict`).
 
+Every convolution of the body ends in one pass of K8
+(`ops/conv_epilogue.py`): each frozen BatchNorm's scale is folded into its
+convolution's weights in float32 before their cast to the compute dtype,
+and its shift, the residual and the ReLU are that pass's
+(`conv_bn`); the FPN's convolutions add their bias in it (`conv_bias`).
+The fold is taken in each forward from the buffers as they stand
+(`layers.py::fold_frozen_batch_norms`, once for the whole body), so the
+state dict is torchvision's and a buffer loaded in place is read at the
+next call, CUDA graph replays included.
+
 The dilated-conv form of the P2 combine (`resnet_fpn.py:258-275`), a TPU
 rewrite, is not carried over: it is the plain upsample, add and smooth here
 (the two agree to f32 accumulation tolerance).
@@ -28,9 +38,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from slowfast_vos_tpu_torch.models.layers import Conv2d, FrozenBatchNorm2d, nchw, nhwc
+from slowfast_vos_tpu_torch.models.layers import Conv2d, FrozenBatchNorm2d, fold_frozen_batch_norms, nchw, nhwc
+from slowfast_vos_tpu_torch.ops.conv_epilogue import conv_epilogue
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
+
+
+def conv_bn(x: torch.Tensor, conv: Conv2d, bn: FrozenBatchNorm2d, folds: dict,
+            residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+    """act(bn(conv(x)) (+ residual)) as one convolution and one K8 pass: bn's
+    scale (from `folds`, `fold_frozen_batch_norms` of a module that holds
+    bn) multiplies conv's weights in float32 before their cast to x's dtype,
+    and its shift is the epilogue's bias."""
+    scale, shift = folds[bn]
+    w = (conv.weight * scale[:, None, None, None]).to(x.dtype)
+    return conv_epilogue(conv._conv_forward(x, w, None), shift, residual, relu)
+
+
+def conv_bias(x: torch.Tensor, conv: Conv2d) -> torch.Tensor:
+    """conv(x) with conv's bias added by K8, not by the convolution's own
+    broadcast add."""
+    return conv_epilogue(conv._conv_forward(x, conv.weight.to(x.dtype), None), conv.bias)
 
 
 class Bottleneck(nn.Module):
@@ -51,12 +79,13 @@ class Bottleneck(nn.Module):
                 FrozenBatchNorm2d(features * 4),
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + shortcut)
+    def forward(self, x: torch.Tensor, folds: dict) -> torch.Tensor:
+        """`folds`: `fold_frozen_batch_norms` of a module that holds this
+        block (the whole body's, from `ResNet50.forward`)."""
+        shortcut = x if self.downsample is None else conv_bn(x, *self.downsample, folds)
+        y = conv_bn(x, self.conv1, self.bn1, folds, relu=True)
+        y = conv_bn(y, self.conv2, self.bn2, folds, relu=True)
+        return conv_bn(y, self.conv3, self.bn3, folds, residual=shortcut, relu=True)
 
 
 def stem_kernel_to_s2d(w7: np.ndarray) -> np.ndarray:
@@ -165,13 +194,15 @@ class ResNet50(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         """NCHW images -> [C2 (/4), C3 (/8), C4 (/16), C5 (/32)]."""
+        folds = fold_frozen_batch_norms(self)
         if self.s2d_stem:
             x = F.pad(nchw(space_to_depth(nhwc(x), 2)), (2, 1, 2, 1))
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = conv_bn(x, self.conv1, self.bn1, folds, relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         outs = []
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = layer(x)
+            for block in layer:
+                x = block(x, folds)
             outs.append(x)
         return outs
 
@@ -189,15 +220,15 @@ class FPN(nn.Module):
         )
 
     def forward(self, inputs: list[torch.Tensor]) -> list[torch.Tensor]:
-        last = self.inner_blocks[-1](inputs[-1])
-        outs = [self.layer_blocks[-1](last)]
+        last = conv_bias(inputs[-1], self.inner_blocks[-1])
+        outs = [conv_bias(last, self.layer_blocks[-1])]
         for i in range(len(inputs) - 2, -1, -1):
-            lat = self.inner_blocks[i](inputs[i])
+            lat = conv_bias(inputs[i], self.inner_blocks[i])
             h, w = lat.shape[-2:]
             # Nearest 2x then crop: the JAX package's repeat-and-slice.
             up = F.interpolate(last, scale_factor=2, mode="nearest")[..., :h, :w]
             last = lat + up
-            outs.insert(0, self.layer_blocks[i](last))
+            outs.insert(0, conv_bias(last, self.layer_blocks[i]))
         outs.append(F.max_pool2d(outs[-1], 1, 2))
         return outs  # P2, P3, P4, P5, P6 ('pool')
 

@@ -9,7 +9,8 @@ the source, and are built at first use: never when a module is imported.
 forward by output size (7, 14), its backward by ("backward", output size),
 NMS by "nms", the train-mode BatchNorm by "bn" and ("backward", "bn"), and
 K7, the attention of `ops/attention.py`, by ("attention", "global") and
-("attention", "window"). `chip_smoke.py` reads it to show that a path went
+("attention", "window"), and K8, the convolution epilogue of
+`ops/conv_epilogue.py`, by "epilogue". `chip_smoke.py` reads it to show that a path went
 through the kernels. Member threads (`parallel/mesh.py::on_members`) launch
 concurrently, so each count is taken under a lock. A wrapper called while
 its thread captures a CUDA graph (`recording_launches`), or that launches

@@ -8,7 +8,9 @@ training step's (`train/graphs.py`) likewise, their stage marks under the
 tracer (`utils/profiling.py`), and K6, SlowFast's train-mode BatchNorm
 (`ops/batch_norm.py`), against its plain versions, and K7, ViTDet's
 attention with decomposed relative positions (`ops/attention.py`), against
-its plain version, with ViTDet-B's pipeline on its graphs.
+its plain version, with ViTDet-B's pipeline on its graphs, and K8, the
+backbone's convolution epilogue (`ops/conv_epilogue.py`), against its plain
+version, through its autograd Function, and in the folded backbone.
 Imports neither JAX's models nor flax, so it runs where only the port's
 dependencies are installed:
 
@@ -29,6 +31,7 @@ from slowfast_vos_tpu_torch.models.slowfast import (
 from slowfast_vos_tpu_torch.models.transform import ImageTransform
 from slowfast_vos_tpu_torch.ops import attention as patt
 from slowfast_vos_tpu_torch.ops import batch_norm as pbn
+from slowfast_vos_tpu_torch.ops import conv_epilogue as pce
 from slowfast_vos_tpu_torch.ops import nms as pnms
 from slowfast_vos_tpu_torch.ops import roi_align as pra
 from slowfast_vos_tpu_torch import data
@@ -455,11 +458,16 @@ def test_graph_path_has_no_host_synchronize(cuda_device, transport):
     assert_same_detections(frame_detections(pending, clip.shape[0], clip.shape[2]), want)
 
 
+# K8 launches of one ResNet-50 + FPN forward: the stem, 16 blocks x 3, 4 downsamples, 8 FPN convolutions.
+K8_PER_BACKBONE = 61
+
+
 @pytest.mark.cuda
 def test_graph_replays_count_their_kernel_launches(cuda_device):
     """A replay adds the K1 (7, 14) and K3 launches its graph recorded at
     capture: a warm run counts what the eager path counts, one launch of
-    each pool and two of K3 per superchunk; capture itself counts none."""
+    each pool and two of K3 per superchunk; capture itself counts none.
+    A graph also records K8 once a backbone convolution."""
     pipe, eager, clip = graph_and_eager("small")
     chunks = -(-clip.shape[0] // pipe.superchunk)
     counts = []
@@ -469,7 +477,7 @@ def test_graph_replays_count_their_kernel_launches(cuda_device):
         counts.append({k: pra.launches[k] - v for k, v in before.items()})
     assert counts == [{7: chunks, 14: chunks, "nms": 2 * chunks}] * 3
     for captured in pipe.graphs.graphs.values():
-        assert captured.launches == {7: 1, 14: 1, "nms": 2}
+        assert captured.launches == {7: 1, 14: 1, "nms": 2, "epilogue": K8_PER_BACKBONE}
 
 
 # The training step's CUDA graphs, at the `__graft_entry__` size in f32
@@ -574,9 +582,9 @@ def test_train_step_has_no_host_synchronize(cuda_device):
 @pytest.mark.cuda
 def test_train_graph_replays_count_their_kernel_launches(cuda_device):
     """Each gradient graph records one launch of K1 and K5 at both pools,
-    one of K3 and 32 of K6's forward and backward (the backward's from
-    autograd's thread too), the update graph none; a replayed step counts
-    what an eager step counts."""
+    one of K3, 32 of K6's forward and backward (the backward's from
+    autograd's thread too) and K8 once a backbone convolution, the update
+    graph none; a replayed step counts what an eager step counts."""
     pipes, calls = train_setup()
     tr = Trainer(pipes[0])
     runner, batch = tr.graphs, calls[1][1]
@@ -588,7 +596,8 @@ def test_train_graph_replays_count_their_kernel_launches(cuda_device):
         counts.append({k: pra.launches[k] - v for k, v in before.items()})
     assert counts == [{k: 1 for k in TRAIN_KEYS}] * 4
     # K6: 8 BatchNorms x 4 FPN levels, forward and backward.
-    assert [c.launches for c in runner.graphs.values()] == [{**{k: 1 for k in TRAIN_KEYS}, "bn": 32, ("backward", "bn"): 32}]
+    assert [c.launches for c in runner.graphs.values()] == [
+        {**{k: 1 for k in TRAIN_KEYS}, "bn": 32, ("backward", "bn"): 32, "epilogue": K8_PER_BACKBONE}]
     assert runner.update.launches == {}
 
 
@@ -1088,3 +1097,111 @@ def test_vitdet_pipeline_graphs_match_eager_and_launch_k7(cuda_device):
     for g, w in zip(got, want):
         for key in ("boxes", "scores", "labels", "valid", "union_mask"):
             np.testing.assert_array_equal(g[key], w[key])
+
+
+K8_MODES = {"bias": (False, False), "bias_relu": (False, True), "bias_residual_relu": (True, True)}
+
+
+def _k8_inputs(device, c, dtype, residual, seed=0, shape=(3, 13, 17)):
+    """x (and a residual) [N, C, H, W] channels-last at a ragged H x W, and
+    a float32 bias, seeded."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, h, w = shape
+    as_cl = lambda t: t.to(dtype).contiguous(memory_format=torch.channels_last)  # noqa: E731
+    x = as_cl(torch.randn((n, c, h, w), generator=g, device=device))
+    res = as_cl(torch.randn((n, c, h, w), generator=g, device=device)) if residual else None
+    return x, torch.randn((c,), generator=g, device=device), res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [40, 64, 120, 256, 512, 2048])
+@pytest.mark.parametrize("mode", list(K8_MODES))
+def test_k8_matches_plain_version(cuda_device, mode, c, dtype):
+    """K8 against its plain version on the same inputs: within one bf16 ulp
+    (both add in float32 in one order and round once), float32 within
+    1e-6; one launch a call under "epilogue"; without autograd recording
+    the main path's call writes over x. Each tensor spans about three
+    strides of K8's persistent grid (8 CTAs of 4 x 256 vectors an SM), so a
+    thread carries its channel group from one stride to the next; at C 40
+    and 120 (not a power of two) that group moves by a non-zero step."""
+    residual, relu = K8_MODES[mode]
+    width = 16 // dtype.itemsize  # channels a vector
+    stride = torch.cuda.get_device_properties(cuda_device).multi_processor_count * 8 * 4 * 256 * width
+    h, w = 97, 131
+    n = -(-3 * stride // (c * h * w))
+    if c in (40, 120):
+        assert stride // width % (c // width) != 0
+    x, bias, res = _k8_inputs(cuda_device, c, dtype, residual, shape=(n, h, w))
+    want = pce.conv_epilogue_plain(x, bias, res, relu)
+    before = pce.launches["epilogue"]
+    got = pce.conv_epilogue_cuda(x, bias, res, relu)
+    assert pce.launches["epilogue"] == before + 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    if dtype == torch.bfloat16:
+        excess = (got.float() - want.float()).abs() - bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+        assert float(excess.max()) <= 0
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    with torch.no_grad():
+        inplace = pce.conv_epilogue(x, bias, res, relu)
+    assert inplace.data_ptr() == x.data_ptr() and torch.equal(inplace, got)
+
+
+@pytest.mark.cuda
+def test_k8_refuses_other_layouts_dtypes_and_widths(cuda_device):
+    """NCHW-contiguous, float16 and C % 8 != 0 raise before a launch;
+    nothing is copied to make them fit."""
+    x, bias, _ = _k8_inputs(cuda_device, 64, torch.bfloat16, False)
+    before = pce.launches["epilogue"]
+    for bad_x, bad_bias in ((x.contiguous(), bias), (x.half(), bias),
+                            (x[:, :60].contiguous(memory_format=torch.channels_last), bias[:60])):
+        with pytest.raises(ValueError):
+            pce.conv_epilogue(bad_x, bad_bias, None, True)
+    assert pce.launches["epilogue"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", list(K8_MODES))
+def test_k8_autograd_matches_autograd_through_the_plain_version(cuda_device, mode, dtype):
+    """Where autograd records, K8 runs in its Function: the output as the
+    kernel's, and the gradients of x, the bias and the residual as autograd
+    gives them through the plain version, within one rounding of the
+    gradient's dtype (the bias's summed in float32)."""
+    residual, relu = K8_MODES[mode]
+    x, bias, res = _k8_inputs(cuda_device, 256, dtype, residual, seed=1)
+    leaves = [t.detach().requires_grad_() for t in (x, bias, res) if t is not None]
+    g = torch.randn(x.shape, device=cuda_device).to(dtype).contiguous(memory_format=torch.channels_last)
+    before = pce.launches["epilogue"]
+    got = pce.conv_epilogue(leaves[0], leaves[1], leaves[2] if residual else None, relu)
+    assert pce.launches["epilogue"] == before + 1 and got.grad_fn is not None
+    got_grads = torch.autograd.grad(got, leaves, g)
+    want = pce.conv_epilogue_plain(leaves[0], leaves[1], leaves[2] if residual else None, relu)
+    want_grads = torch.autograd.grad(want, leaves, g)
+    assert torch.equal(got.detach(), want.detach())
+    for got_g, want_g in zip(got_grads, want_grads):
+        assert got_g.dtype == want_g.dtype
+        torch.testing.assert_close(got_g, want_g, rtol=2.0**-7 if dtype == torch.bfloat16 else 1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s2d_stem", [False, True], ids=["7x7_stem", "s2d_stem"])
+def test_backbone_on_k8_matches_the_cpu(cuda_device, s2d_stem):
+    """The folded ResNet-50 + FPN in float32 (TF32 off) on the card, through
+    K8 (K8_PER_BACKBONE launches), against the same model's plain path on
+    the CPU."""
+    from test_torch_conv_epilogue import images, seeded_backbone
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = seeded_backbone(s2d_stem)
+    x = images()
+    with torch.no_grad():
+        want = model(x)
+        model.to(cuda_device)
+        before = pce.launches["epilogue"]
+        got = model(x.to(cuda_device))
+    assert pce.launches["epilogue"] == before + K8_PER_BACKBONE
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
