@@ -104,29 +104,17 @@ Phases, each fatal on failure:
              sub-step, ms per DP step, the one-rank group's warm DP and
              serial steps in turns, wall seconds. Two ranks on one card
              show correctness and overhead, not scaling;
-10. transport and stem - at phase 2's width, clip and weights: the YUV
-             4:2:0 transport (`infer_sequence(transport="yuv420")`, launch
-             counts read around it, its peak memory, frames/s against rgb
-             (median of 3 warm runs in turns), bytes uploaded per chunk for
-             each), `from_yuv420` on the card against the CPU (f32, atol
-             1e-4) and phase 5's input as planes, card against CPU; the
-             space-to-depth stem: the s2d backbone with a remapped conv1
-             against the 7x7 one in f32 (TF32 off), a full-width
-             `build_pipeline(s2d_stem=True)` inference (launch counts), both
-             stems' `backbone_feats` at [SC + 2, 768, 1344] (CUDA events,
-             median of 10 in turns), phase 8's 7x7 checkpoint through
-             `load_init` into an s2d model; the NMS kernel and the blocked
-             sweep against the fixpoint at N = 8192 (index-exact, times,
-             peak memory); and `torch_bench.py --transport yuv420 --runs 2`;
+10. nms blocked - the NMS kernel and the blocked sweep against the
+             fixpoint at N = 8192 (index-exact, times, peak memory);
 11. graphs - the superchunk's CUDA graphs against the eager path on one
              model at full width, at superchunk 8 over 20 frames and at 32
-             over 64: bit for bit for both transports with and without
-             instance masks (first and warm graph runs), launches counted per
+             over 64: bit for bit with and without instance masks (first
+             and warm graph runs), launches counted per
              replay (K8's too), the host's part of a run under the sync debug mode
              "error" on both paths, peak device memory of each path, frames/s
              in turns and capture times; other weights loaded in place
              replayed with no new capture, a replaced parameter recaptured.
-             Phases 2 and 7-10 run on the graph path already.
+             Phases 2 and 7-9 run on the graph path already.
 12. train graphs - the training step's CUDA graphs against the eager path
              at full width: unsupervised (accumulate 1), OSVOS (1 centre
              frame, accumulate 2, freeze SF) and the Mask R-CNN fine-tune
@@ -499,20 +487,13 @@ def phase_main(ra, pipeline_mod) -> tuple[dict, dict, dict]:
     return counts, rois, nms_inputs
 
 
-def phase_reference(pipeline_mod, transport: str = "rgb") -> None:
+def phase_reference(pipeline_mod) -> None:
     """A small f32 input through `forward_superchunk` on the card and on the
-    CPU (plain versions, no kernel), same seeded weights, as RGB frames or
-    (phase 10) as YUV 4:2:0 planes. Tolerances as in
+    CPU (plain versions, no kernel), same seeded weights. Tolerances as in
     tests/test_torch_pipeline.py: valid flags and labels exact, boxes within
     0.05 px, scores within 1e-4, at most 1% of union-mask pixels differ."""
     outs = []
-    images = np.random.default_rng(2).integers(0, 256, (6, 120, 200, 3), dtype=np.uint8)
-    if transport == "yuv420":
-        from slowfast_vos_tpu_torch.models.transform import rgb_to_yuv420
-
-        images = tuple(map(torch.from_numpy, rgb_to_yuv420(images)))
-    else:
-        images = torch.from_numpy(images)
+    images = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (6, 120, 200, 3), dtype=np.uint8))
     for device in ("cuda", "cpu"):
         pipe, model = pipeline_mod.build_pipeline(
             3, 3, (120, 200), min_size=128, max_size=256, dtype=torch.float32, device=device, superchunk=4
@@ -523,7 +504,7 @@ def phase_reference(pipeline_mod, transport: str = "rgb") -> None:
     (gb, gs, gl, gv, gm), (cb, cs, cl, cv, cm) = outs
     box_err, score_err = np.abs(gb - cb).max(), np.abs(gs - cs).max()
     mask_diff = (np.unpackbits(gm, axis=-1, count=200) != np.unpackbits(cm, axis=-1, count=200)).mean()
-    log(f"reference: card vs CPU at 120x200 f32, {transport}: valid equal {np.array_equal(gv, cv)}, labels equal "
+    log(f"reference: card vs CPU at 120x200 f32: valid equal {np.array_equal(gv, cv)}, labels equal "
         f"{np.array_equal(gl, cl)}, box err {box_err:.3e} px, score err {score_err:.3e}, mask pixels differing {mask_diff:.4f}")
     check(np.array_equal(gv, cv) and np.array_equal(gl, cl), "valid flags or labels differ from the CPU")
     check(box_err <= 0.05 and score_err <= 1e-4 and mask_diff <= 0.01, "card output differs from the CPU")
@@ -1143,7 +1124,7 @@ def phase_cli(ra, data, workdir: Path) -> dict:
     bench = run("bench --runs 2", torch_bench, ["--runs", "2"], forward)
     bench += run("bench --train", torch_bench, ["--train"])
     infer, train = bench
-    check(all(k in infer for k in ("metric", "value", "unit", "vs_baseline", "median", "runs", "config", "transport",
+    check(all(k in infer for k in ("metric", "value", "unit", "vs_baseline", "median", "runs", "config",
                                    "device_fps", "device_median", "device_mfu", "card")) and infer["value"] > 0,
           f"bench record {infer}")
     check(train["metric"] == "train_frames_per_sec_per_chip" and train["step_ms"] > 0, f"bench --train record {train}")
@@ -1689,148 +1670,15 @@ def phase_parallel(ra, pipeline_mod, train_mod, data, workdir: Path) -> dict:
         f"each member's results equal to its serial fine-tune")
     return out
 
-# Phase 10: the YUV 4:2:0 transport and the space-to-depth stem.
+# Phase 10: the NMS kernel and the blocked sweep at N = 8192.
 NMS_BLOCKED_N = 8192  # above FIXPOINT_MAX_N: where "auto" takes the blocked sweep
-STEM_RUNS = 10
 
 
-def turns(fns: dict, runs: int, events: bool = False) -> dict:
-    """{name: [time of each call]} of `fns` called in turns `runs` times:
-    seconds on the host clock, synchronized around each call, or with
-    `events` device ms by CUDA events around each call."""
-    times = {name: [] for name in fns}
-    for _ in range(runs):
-        for name, fn in fns.items():
-            torch.cuda.synchronize()
-            if events:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                times[name].append(start.elapsed_time(end))
-            else:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times[name].append(time.perf_counter() - t0)
-    return times
-
-
-def upload_bytes(dev_images) -> int:
-    planes = dev_images if isinstance(dev_images, tuple) else (dev_images,)
-    return sum(p.numel() * p.element_size() for p in planes)
-
-
-def phase_transport_stem(ra, pipeline_mod, cli_dir: Path) -> dict:
-    """The YUV 4:2:0 transport and the space-to-depth stem at full width
-    (480x854, 3-3, bf16, superchunk 8, phase 2's 20-frame clip and
-    weights): yuv420 inference (launches, contract, peak memory; frames/s
-    against rgb in turns; bytes uploaded per chunk), the decode on the card
-    against the CPU, phase 5's input as planes card against CPU, the s2d
-    backbone with a remapped conv1 against the standard one in f32, the s2d
-    pipeline's inference, both stems' `backbone_feats` in turns, phase 8's
-    7x7 checkpoint into an s2d model, the blocked NMS against the fixpoint
-    at N = 8192, and `torch_bench.py --transport yuv420 --runs 2`."""
-    from scripts import torch_bench
-    from slowfast_vos_tpu_torch.convert import load_init
-    from slowfast_vos_tpu_torch.models.resnet_fpn import stem_weight_to_s2d
-    from slowfast_vos_tpu_torch.models.transform import rgb_to_yuv420
+def phase_nms_blocked() -> dict:
+    """The NMS kernel and the blocked sweep against the fixpoint at
+    N = 8192 (index-exact; host-clock times and the temporaries' peak
+    memory of each)."""
     from slowfast_vos_tpu_torch.ops import nms
-    from slowfast_vos_tpu_torch.utils.checkpoint import STEM_KEY, load_checkpoint, migrate_state_dict
-
-    out, counts = {}, {}
-    chunks = -(-20 // SC)
-    pipe, model = pipeline_mod.build_pipeline(3, 3, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=SC)
-    pipeline_mod.init_weights(model, seed=0)
-    clip = np.random.default_rng(1).integers(0, 256, (20, *DRIVER_HW, 3), dtype=np.uint8)  # phase 2's
-    d = pipe.cfg.detections_per_img
-
-    torch.cuda.reset_peak_memory_stats()
-    with launches_of(ra, counts, "infer_sequence yuv420", FORWARD_KEYS, tag="transport"):
-        dets = pipe.infer_sequence(clip, transport="yuv420")
-        torch.cuda.synchronize()
-    out["peak_gib_yuv420"] = torch.cuda.max_memory_allocated() / 2**30
-    check_detections(dets, 20, d)
-    c = counts["infer_sequence yuv420"]
-    check(c[7] == chunks and c[14] == chunks and c["nms"] == 2 * chunks,
-          f"yuv420 inference: {chunks} launches of each pool and {2 * chunks} of NMS expected")
-    out["bytes_per_chunk"] = {
-        transport: {"first": upload_bytes(pipe.chunk_inputs(clip, 0, False, transport)[0]),
-                    "carry": upload_bytes(pipe.chunk_inputs(clip, SC, True, transport)[0])}
-        for transport in pipeline_mod.TRANSPORTS
-    }
-    rgb_b, yuv_b = out["bytes_per_chunk"]["rgb"], out["bytes_per_chunk"]["yuv420"]
-    check(all(2 * yuv_b[k] == rgb_b[k] for k in rgb_b), f"yuv420 is not half the bytes: {out['bytes_per_chunk']}")
-    runs = turns({"rgb": lambda: pipe.infer_sequence(clip),
-                  "yuv420": lambda: pipe.infer_sequence(clip, transport="yuv420")}, 3)
-    out["frames_per_s"] = {k: 20 / statistics.median(v) for k, v in runs.items()}
-    out["runs_s"] = runs
-    log(f"transport: infer_sequence 20 frames 480x854 3-3 bf16 superchunk {SC}, warm runs in turns: "
-        + "; ".join(f"{k} {', '.join(f'{r:.3f}' for r in v)} s -> {out['frames_per_s'][k]:.2f} frames/s"
-                    for k, v in runs.items())
-        + f"; bytes per chunk (first, carry) rgb {rgb_b['first']}, {rgb_b['carry']}, yuv420 {yuv_b['first']}, "
-        f"{yuv_b['carry']}; peak device memory {out['peak_gib_yuv420']:.2f} GiB")
-
-    y, uv = rgb_to_yuv420(clip[:SC])
-    card = pipe.transform.from_yuv420(torch.from_numpy(y).cuda(), torch.from_numpy(uv).cuda()).cpu()
-    cpu = pipe.transform.from_yuv420(torch.from_numpy(y), torch.from_numpy(uv))
-    out["from_yuv420_max_abs_err"] = (card - cpu).abs().max().item()
-    log(f"transport: from_yuv420 [{SC}, 480, 854] -> {tuple(card.shape)} f32, card vs CPU: max abs err "
-        f"{out['from_yuv420_max_abs_err']:.3e} (tol 1e-4)")
-    check(out["from_yuv420_max_abs_err"] <= 1e-4, "from_yuv420 on the card differs from the CPU")
-    phase_reference(pipeline_mod, transport="yuv420")
-
-    # The stems, f32 (TF32 off): the s2d backbone with the standard one's weights, conv1 remapped.
-    std32, std32_model = pipeline_mod.build_pipeline(
-        3, 3, (120, 200), min_size=128, max_size=256, dtype=torch.float32, device="cuda", superchunk=4)
-    pipeline_mod.init_weights(std32_model, seed=0)
-    _, s2d32_model = pipeline_mod.build_pipeline(
-        3, 3, (120, 200), min_size=128, max_size=256, dtype=torch.float32, device="cuda", superchunk=4, s2d_stem=True)
-    s2d32_model.load_state_dict(migrate_state_dict(std32_model.state_dict(), s2d32_model.state_dict()), strict=True)
-    small = std32.transform(torch.from_numpy(  # phase 5's frames
-        np.random.default_rng(2).integers(0, 256, (6, 120, 200, 3), dtype=np.uint8)).cuda())
-    with torch.inference_mode():
-        pairs = list(zip(s2d32_model.backbone_feats(small), std32_model.backbone_feats(small)))
-    errs = [((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item() for a, b in pairs]
-    out["s2d_vs_7x7_f32_err"] = max(errs)
-    log(f"stem: s2d backbone (conv1 remapped) vs 7x7 at {tuple(small.shape)} f32 on the card: max abs err over "
-        f"max(1, |level|) per level {', '.join(f'{e:.2e}' for e in errs)} (tol 1e-4)")
-    check(out["s2d_vs_7x7_f32_err"] <= 1e-4, "the s2d stem disagrees with the 7x7 stem")
-
-    s2d_pipe, s2d_model = pipeline_mod.build_pipeline(
-        3, 3, DRIVER_HW, dtype=torch.bfloat16, device="cuda", superchunk=SC, s2d_stem=True)
-    s2d_model.load_state_dict(migrate_state_dict(model.state_dict(), s2d_model.state_dict()), strict=True)
-    with launches_of(ra, counts, "infer_sequence s2d stem", FORWARD_KEYS, tag="stem"):
-        s2d_dets = s2d_pipe.infer_sequence(clip)
-        torch.cuda.synchronize()
-    check_detections(s2d_dets, 20, d)
-    c = counts["infer_sequence s2d stem"]
-    check(c[7] == chunks and c[14] == chunks and c["nms"] == 2 * chunks,
-          f"s2d inference: {chunks} launches of each pool and {2 * chunks} of NMS expected")
-    rgb_dets = pipe.infer_sequence(clip)
-    same = np.mean([np.array_equal(a["valid"], b["valid"]) for a, b in zip(s2d_dets, rgb_dets)])
-    log(f"stem: s2d pipeline infer_sequence 20 frames at full width: valid flags equal to the 7x7 stem's in "
-        f"{same:.2f} of frames (bf16: reported, not checked)")
-
-    canvas = pipe.transform(torch.from_numpy(clip[: SC + 2]).cuda())
-    feats = {"7x7": lambda: model.backbone_feats(canvas), "s2d": lambda: s2d_model.backbone_feats(canvas)}
-    with torch.inference_mode():
-        turns(feats, 2, events=True)
-        stem_ms = turns(feats, STEM_RUNS, events=True)
-    out["backbone_ms"] = {k: statistics.median(v) for k, v in stem_ms.items()}
-    log(f"stem: backbone_feats [{SC + 2}, 768, 1344] bf16, device ms (CUDA events, median of {STEM_RUNS} in turns): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in out["backbone_ms"].items()))
-
-    ckpt = cli_dir / "unsupervised" / "ckpt_best.pt"
-    report = load_init(str(ckpt), s2d_model)
-    w7 = load_checkpoint(str(ckpt))["model"][STEM_KEY]
-    check(report["migrated"] == [STEM_KEY] and report["unused_source_keys"] == [] and report["untouched"] == [],
-          f"phase 8's checkpoint did not load whole into the s2d model: {report['migrated']}, "
-          f"{report['unused_source_keys'][:5]}, {report['untouched'][:5]}")
-    check(torch.equal(s2d_model.state_dict()[STEM_KEY].cpu(), stem_weight_to_s2d(w7)), "the stem was not remapped")
-    log(f"stem: load_init of phase 8's 7x7 ckpt_best into an s2d model: {report['converted']} converted, "
-        f"{STEM_KEY} remapped to [64, 12, 4, 4] exactly")
 
     rng = np.random.default_rng(10)
     xy = rng.uniform(0, [1344, 768], (NMS_BLOCKED_N, 2))
@@ -1853,20 +1701,26 @@ def phase_transport_stem(ra, pipeline_mod, cli_dir: Path) -> dict:
         f"{nms_ms['blocked']:.3f} ms, {nms_gib['blocked']:.3f} GiB (host clock, median of 5; temporaries' peak)")
     check(all(torch.equal(a, b) for alg in ("auto", "blocked") for a, b in zip(results[alg], results["fixpoint"]))
           and 0 < kept < NMS_BLOCKED_N, "the kernel or the blocked NMS differs from the fixpoint")
-    out["nms"] = {"n": NMS_BLOCKED_N, "kept": kept, "ms": nms_ms, "peak_gib": nms_gib}
-
-    with launches_of(ra, counts, "bench --transport yuv420 --runs 2", FORWARD_KEYS, tag="transport"):
-        (record,) = torch_bench.main(["--transport", "yuv420", "--runs", "2"])
-    check(record["transport"] == "yuv420" and record["value"] > 0 and record["device_fps"] > 0,
-          f"bench yuv420 record {record}")
-    out["bench"] = record
-    out["counts"] = counts
-    return out
+    return {"n": NMS_BLOCKED_N, "kept": kept, "ms": nms_ms, "peak_gib": nms_gib}
 
 
 # Phase 11: the superchunk's CUDA graphs against the eager path.
 GRAPH_CELLS = ((SC, 20), (32, 64))  # (superchunk, frames): phase 2's clip; the CLIs' superchunk over 64 frames
 GRAPH_RUNS = 3
+
+
+def turns(fns: dict, runs: int) -> dict:
+    """{name: [seconds of each call]} of `fns` called in turns `runs` times,
+    on the host clock, synchronized around each call."""
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return times
 
 
 def same_detections(got: list, want: list) -> bool:
@@ -1895,8 +1749,8 @@ def phase_graphs(ra, pipeline_mod) -> dict:
     (480x854, 3-3, bf16, seeded weights) at superchunk 8 over phase 2's
     20 frames and at 32 over 64: a graph pipeline and an eager one
     (`graphs=False`) over the same model; peak device memory of an eager
-    run, of the first graph run (captures) and of a warm one; both
-    transports with and without instance masks, the first graph run and a
+    run, of the first graph run (captures) and of a warm one; with and
+    without instance masks, the first graph run and a
     warm one each equal to the eager run bit for bit; a warm graph run
     counting one launch of each pool and two of K3 per superchunk, each
     graph recording the same; the host's part of a run on either path
@@ -1930,18 +1784,17 @@ def phase_graphs(ra, pipeline_mod) -> dict:
         log(f"graphs: {tag}: peak device memory allocated / reserved: " + ", ".join(
             f"{k} {cell['peak_gib'][k]:.2f} / {cell['peak_reserved_gib'][k]:.2f} GiB" for k in runs))
 
-        for transport in pipeline_mod.TRANSPORTS:
-            for masks in (False, True):
-                want = eager.infer_sequence(clip, transport=transport, instance_masks=masks)
-                got = [pipe.infer_sequence(clip, transport=transport, instance_masks=masks) for _ in range(2)]
-                equal = all(same_detections(g, want) for g in got)
-                log(f"graphs: {tag}: {transport}, instance masks {masks}: first and warm graph runs equal to eager "
-                    f"bit for bit: {equal} ({sum(int(d['valid'].sum()) for d in want)} valid detections)")
-                check(equal, f"graphs: {tag}: {transport}, instance masks {masks}: the graph path differs from eager")
-        check(pipe.graphs.captures == len(pipe.graphs.graphs) == 8,
-              f"graphs: {pipe.graphs.captures} captures of {len(pipe.graphs.graphs)} keys, 8 expected")
-        cell["capture_s"] = {f"{'yuv420' if k[0] else 'rgb'} {'carry' if k[3] else 'first'}"
-                             f"{' instance masks' if k[4] else ''}": g.capture_s for k, g in pipe.graphs.graphs.items()}
+        for masks in (False, True):
+            want = eager.infer_sequence(clip, instance_masks=masks)
+            got = [pipe.infer_sequence(clip, instance_masks=masks) for _ in range(2)]
+            equal = all(same_detections(g, want) for g in got)
+            log(f"graphs: {tag}: instance masks {masks}: first and warm graph runs equal to eager "
+                f"bit for bit: {equal} ({sum(int(d['valid'].sum()) for d in want)} valid detections)")
+            check(equal, f"graphs: {tag}: instance masks {masks}: the graph path differs from eager")
+        check(pipe.graphs.captures == len(pipe.graphs.graphs) == 4,
+              f"graphs: {pipe.graphs.captures} captures of {len(pipe.graphs.graphs)} keys, 4 expected")
+        cell["capture_s"] = {f"{'carry' if k[2] else 'first'}{' instance masks' if k[3] else ''}": g.capture_s
+                             for k, g in pipe.graphs.graphs.items()}
         for g in pipe.graphs.graphs.values():
             check(g.launches == {7: 1, 14: 1, "nms": 2, "epilogue": K8_PER_BACKBONE}, f"a graph recorded {g.launches}")
         ra.launches.clear()
@@ -2750,15 +2603,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=cuda_build.BUILD_DIR) as cli_dir:
         cli = phase_cli(ra, data, Path(cli_dir))
         log(f"cli: phase 8 in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_", dir=cuda_build.BUILD_DIR) as workdir:
-            parallel = phase_parallel(ra, pipeline_mod, train_mod, data, Path(workdir))
-        parallel["walls_s"]["phase"] = time.perf_counter() - t0
-        log(f"parallel: phase 9 in {parallel['walls_s']['phase']:.1f} s (two ranks on one card: correctness and "
-            f"overhead, not scaling)")
-        t0 = time.perf_counter()
-        transport_stem = phase_transport_stem(ra, pipeline_mod, Path(cli_dir))  # reads phase 8's checkpoint
-    log(f"transport and stem: phase 10 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_", dir=cuda_build.BUILD_DIR) as workdir:
+        parallel = phase_parallel(ra, pipeline_mod, train_mod, data, Path(workdir))
+    parallel["walls_s"]["phase"] = time.perf_counter() - t0
+    log(f"parallel: phase 9 in {parallel['walls_s']['phase']:.1f} s (two ranks on one card: correctness and "
+        f"overhead, not scaling)")
+    t0 = time.perf_counter()
+    nms_blocked = phase_nms_blocked()
+    log(f"nms blocked: phase 10 in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     graphs = phase_graphs(ra, pipeline_mod)
     log(f"graphs: phase 11 in {time.perf_counter() - t0:.1f} s")
@@ -2781,14 +2634,13 @@ def main() -> int:
         r["drivers_launches"] = {name: c[key] for name, c in drivers["counts"].items()}
         r["cli_launches"] = {name: c[key] for name, c in cli["counts"].items()}
         r["parallel_launches"] = {name: c[key] if key in c else c[str(key)] for name, c in parallel["counts"].items()}
-        r["transport_stem_launches"] = {name: c[key] for name, c in transport_stem["counts"].items()}
         r["train_graph_step_launches"] = train_graphs["unsupervised"]["warm_step_launches"][str(key)]
 
     log(json.dumps({"train_step": {k: train[k] for k in ("step_ms", "step_times_ms", "peak_gib")}}))
     log(json.dumps({"drivers": {k: v for k, v in drivers.items() if k != "counts"}}))
     log(json.dumps({"cli": {k: v for k, v in cli.items() if k != "counts"}}))
     log(json.dumps({"parallel": {k: v for k, v in parallel.items() if k != "counts"}}))
-    log(json.dumps({"transport_stem": {k: v for k, v in transport_stem.items() if k != "counts"}}))
+    log(json.dumps({"nms_blocked": nms_blocked}))
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"train_graphs": train_graphs}))
     log(json.dumps({"kernels": records + k7}))

@@ -16,17 +16,8 @@ times (1376 frames) per configuration on its GPU (`BASELINE.md`,
 Experiments.tex; 544 s for 3-3, ~2.53 frames/s); `vs_baseline` is our
 frames/s over the reference's.
 
-`--transport`: how frames reach the card. `rgb` (the default) uploads raw
-RGB windows; `yuv420` converts each window to YUV 4:2:0 planes on the host
-(OpenCV, frame by frame) and decodes them on the card: half the bytes, with
-4:2:0 chroma. The JAX `bench.py` defaults to `yuv420` because its TPU sat
-behind a link that did not overlap transfers with compute; an H100's host
-link does, so the port defaults to `rgb`. The record's `transport` names the
-one that ran.
-
-`device_fps`: every superchunk's window uploaded to the card first (in the
-transport's form), the timed loop runs only the superchunks and ends in one
-synchronize.
+`device_fps`: every superchunk's window uploaded to the card first, the
+timed loop runs only the superchunks and ends in one synchronize.
 `graphs`: both numbers are taken on the pipeline's default path on the card,
 one CUDA graph replay per superchunk (`models/graphs.py`); the record says
 which path ran, so no eager number is read as a graph one.
@@ -91,16 +82,16 @@ def _pipeline(slow: int, fast: int):
     return pipe
 
 
-def device_fps(pipe, clip: np.ndarray, transport: str, runs: int):
+def device_fps(pipe, clip: np.ndarray, runs: int):
     """(best, median) frames/s with every superchunk's window on the card
-    (in `transport` form) before the clock starts; one synchronize (the
+    before the clock starts; one synchronize (the
     scores' sum) per run."""
     import torch
 
     t = clip.shape[0]
     use_carry = pipe.sf.fast > 1
     prepared = [
-        pipe.chunk_inputs(clip, c, c > 0 and use_carry, transport) for c in range(0, t, pipe.superchunk)
+        pipe.chunk_inputs(clip, c, c > 0 and use_carry) for c in range(0, t, pipe.superchunk)
     ]
 
     @torch.inference_mode()
@@ -121,15 +112,15 @@ def device_fps(pipe, clip: np.ndarray, transport: str, runs: int):
     return max(fps), float(np.median(fps))
 
 
-def bench_config(slow: int, fast: int, *, transport: str, runs: int, device_name: str) -> dict:
+def bench_config(slow: int, fast: int, *, runs: int, device_name: str) -> dict:
     pipe = _pipeline(slow, fast)
     clip = np.random.default_rng(63).integers(0, 255, (64, *HW, 3), dtype=np.uint8)
-    pipe.infer_sequence(clip, transport=transport)  # warm-up: every superchunk shape of the timed clip
+    pipe.infer_sequence(clip)  # warm-up: every superchunk shape of the timed clip
 
     fps_runs = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        dets = pipe.infer_sequence(clip, transport=transport)
+        dets = pipe.infer_sequence(clip)
         dt = time.perf_counter() - t0
         assert len(dets) == clip.shape[0]
         fps_runs.append(clip.shape[0] / dt)
@@ -145,14 +136,13 @@ def bench_config(slow: int, fast: int, *, transport: str, runs: int, device_name
         "median": round(float(np.median(fps_runs)), 3),
         "runs": [round(f, 3) for f in fps_runs],
         "config": config,
-        "transport": transport,
         "superchunk": pipe.superchunk,
         "graphs": pipe.graphs is not None,
         "card": device_name,
     }
     # Printed before the device columns, so a failure there still leaves a record.
     print(json.dumps(record), flush=True)
-    dev_best, dev_median = device_fps(pipe, clip, transport, runs)
+    dev_best, dev_median = device_fps(pipe, clip, runs)
     record["device_fps"] = round(dev_best, 3)
     record["device_median"] = round(dev_median, 3)
     record["device_mfu"] = round(FLOPS_PER_FRAME[config] * dev_median / H100_SXM_BF16_FLOPS, 4)
@@ -199,11 +189,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--slow", type=int, default=3)
     ap.add_argument("--fast", type=int, default=3)
-    ap.add_argument("--transport", default="rgb", choices=["rgb", "yuv420"],
-                    help="host->device image transport: 'rgb' (default) uploads raw RGB; 'yuv420' "
-                    "converts on the host and uploads 4:2:0 planes, half the bytes. The JAX bench's "
-                    "yuv420 default answered a TPU link that did not overlap transfers with "
-                    "compute; an H100's host link has no such limit")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--all-configs", action="store_true",
                     help="bench every published config (1-1/3-3/7-7/1-7/3-7), one JSON line each")
@@ -218,7 +203,7 @@ def main(argv=None):
     if args.train:
         return [bench_train(args.slow, args.fast, device_name)]
     configs = CONFIGS if args.all_configs else [(args.slow, args.fast)]
-    return [bench_config(s, f, transport=args.transport, runs=args.runs, device_name=device_name) for s, f in configs]
+    return [bench_config(s, f, runs=args.runs, device_name=device_name) for s, f in configs]
 
 
 if __name__ == "__main__":

@@ -20,9 +20,7 @@ them. `num_batches_tracked` counters are ignored. Every tensor of the model
 that the file lacks keeps its current value: loading a Mask R-CNN file into
 a SlowFast model leaves `slow_fast.*` at the seeded init, as the JAX loader
 keeps a missing subtree at its init. A file key with no place in the model
-is reported, not loaded; a shape mismatch raises, except for the stem
-weight, which `utils/checkpoint.py::migrate_state_dict` remaps between the
-7x7 and the space-to-depth layouts first (JAX `scripts/train.py:80-83`).
+is reported, not loaded; a shape mismatch raises.
 """
 from __future__ import annotations
 
@@ -30,8 +28,6 @@ import os
 import re
 
 import torch
-
-from slowfast_vos_tpu_torch.utils.checkpoint import STEM_KEY, migrate_state_dict
 
 PREFIX = "maskrcnn_model."
 
@@ -65,11 +61,9 @@ def load_init(path: str, model: torch.nn.Module) -> dict:
     """Copy every tensor of the file at `path` that has a place in `model`
     into it, in place. Returns the report {converted: the number of tensors
     copied, unused_source_keys: file keys with no place in the model,
-    untouched: model keys the file left at their current values, migrated:
-    the keys remapped to the model's layout (the stem weight between the 7x7
-    and space-to-depth stems)}; no list names a `num_batches_tracked`
-    counter. Raises ValueError where a file tensor's shape differs from the
-    model's and no remap fits it."""
+    untouched: model keys the file left at their current values}; no list
+    names a `num_batches_tracked` counter. Raises ValueError, and loads
+    nothing, where a file tensor's shape differs from the model's."""
     sd = load_reference_state_dict(path)
     if not isinstance(sd, dict):
         raise ValueError(f"{path} holds a {type(sd).__name__}, not a state dict")
@@ -85,17 +79,11 @@ def load_init(path: str, model: torch.nn.Module) -> dict:
             unused.append(key)
             continue
         found[name], keys[name] = value, key
-    migrated = migrate_state_dict(found, target)
-    for name, value in migrated.items():
+    for name, value in found.items():
         if tuple(value.shape) != tuple(target[name].shape):
             raise ValueError(f"{path}: {keys[name]} has shape {tuple(value.shape)}, the model's {name} {tuple(target[name].shape)}")
     with torch.no_grad():  # only once every shape is known to fit
-        for name, value in migrated.items():
+        for name, value in found.items():
             target[name].copy_(value)
-    untouched = [k for k in target if k not in migrated and "num_batches_tracked" not in k]
-    return {
-        "converted": len(migrated),
-        "unused_source_keys": unused,
-        "untouched": untouched,
-        "migrated": [STEM_KEY] if migrated is not found else [],
-    }
+    untouched = [k for k in target if k not in found and "num_batches_tracked" not in k]
+    return {"converted": len(found), "unused_source_keys": unused, "untouched": untouched}

@@ -10,8 +10,8 @@ card, sets the pace. `SuperchunkGraphs` runs each superchunk key once
 eagerly and captures it, then replays the graph with one launch:
 
 * the key is what fixes the graph: first chunk or carried, the shape and
-  dtype of every input (the transport: RGB frames or YUV 4:2:0 planes),
-  instance masks or the packed union, and the TF32 switches;
+  dtype of every input, instance masks or the packed union, and the TF32
+  switches;
 * the first superchunk of a key runs eagerly on the device's capture
   stream, and its outputs are that call's result. The run also warms what
   capture may not do: cuDNN's and cuBLAS's set-up on that stream (cuBLAS
@@ -84,7 +84,7 @@ def capture_stream(device: torch.device) -> tuple:
 @dataclasses.dataclass
 class CapturedSuperchunk:
     graph: torch.cuda.CUDAGraph
-    inputs: list  # static: the window's planes, feat_valid, the carry's levels
+    inputs: list  # static: the window, feat_valid, the carry's levels
     outputs: tuple  # (detections, carry) as `_superchunk` returns them, in the pool
     launches: dict  # kernel launches per replay, by `cuda_build.launches` key
     capture_s: float
@@ -161,10 +161,8 @@ def replay(captured) -> None:
 
 def superchunk_key(images, feat_valid, carry, instance_masks: bool) -> tuple:
     """What fixes a superchunk's graph (see the module docstring)."""
-    planes = images if isinstance(images, tuple) else (images,)
     return (
-        isinstance(images, tuple),
-        tuple(tensor_spec(p) for p in planes),
+        tensor_spec(images),
         tensor_spec(feat_valid),
         None if carry is None else tuple(tensor_spec(c) for c in carry),
         instance_masks,
@@ -211,7 +209,7 @@ class SuperchunkGraphs:
         with TRACER.span("graphs.run"), self._lock, torch.inference_mode():
             with TRACER.span("graphs.check"):
                 key = superchunk_key(images, feat_valid, carry, instance_masks)
-                sources = [*(images if isinstance(images, tuple) else (images,)), feat_valid, *(carry or ())]
+                sources = [images, feat_valid, *(carry or ())]
                 self.check_model()
                 captured = self.graphs.get(key)
             if captured is None:
@@ -228,8 +226,7 @@ class SuperchunkGraphs:
     def _capture(self, key, sources, instance_masks):
         """The key's first superchunk: run eagerly on the capture stream,
         then captured into a graph there. Returns the eager run's outputs."""
-        yuv, planes = key[0], len(key[1])
-        carried = key[3] is not None
+        carried = key[2] is not None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         inputs = [torch.empty_like(s) for s in sources]
@@ -237,9 +234,8 @@ class SuperchunkGraphs:
             dst.copy_(src, non_blocking=True)
 
         def superchunk():
-            images = tuple(inputs[:planes]) if yuv else inputs[0]
-            carry = inputs[planes + 1:] if carried else None
-            return self.pipe._superchunk(images, inputs[planes], carry, instance_masks)
+            carry = inputs[2:] if carried else None
+            return self.pipe._superchunk(inputs[0], inputs[1], carry, instance_masks)
 
         clock = TRACER.stage_clock(f"superchunk.{'carried' if carried else 'first'}[{sources[0].shape[0]}]")
         result, graph, outputs, launches, capture_s = capture(self.pipe.device, self._pool, superchunk, clock=clock)

@@ -16,10 +16,7 @@ superchunk of SC frames plus the F-1 temporal halo runs
 
 `infer_sequence` streams a clip through superchunks. After the first, each
 chunk computes the backbone for its SC new frames only and carries the F-1
-overlap frames' features over from the previous chunk. Its frames reach the
-device as RGB (`transport="rgb"`, the default) or as YUV 4:2:0 planes
-(`"yuv420"`, half the bytes, decoded on the device by
-`ImageTransform.from_yuv420`); `forward_superchunk` takes either form. With
+overlap frames' features over from the previous chunk. With
 `instance_masks=True` it returns each detection's pasted mask probabilities
 as well (JAX `_finalize_instances_impl`). `compute_sequence_features` runs
 only the frozen backbone and the RPN over a sequence (the proposal dump of
@@ -54,7 +51,7 @@ from slowfast_vos_tpu_torch.models.layers import lecun_normal_
 from slowfast_vos_tpu_torch.models.resnet_fpn import FPN_STRIDES
 from slowfast_vos_tpu_torch.models.rpn import filter_proposals
 from slowfast_vos_tpu_torch.models.segmentation import SlowFastMaskRCNN
-from slowfast_vos_tpu_torch.models.transform import ImageTransform, rgb_to_yuv420
+from slowfast_vos_tpu_torch.models.transform import ImageTransform
 from slowfast_vos_tpu_torch.models.vit import ViTConfig
 from slowfast_vos_tpu_torch.ops.constants import device_constant
 from slowfast_vos_tpu_torch.ops.paste_masks import paste_masks_in_image
@@ -62,7 +59,6 @@ from slowfast_vos_tpu_torch.ops.roi_align import ROI_SCALES, multiscale_roi_alig
 from slowfast_vos_tpu_torch.utils.profiling import TRACER
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-TRANSPORTS = ("rgb", "yuv420")
 
 
 def packbits(x: torch.Tensor) -> torch.Tensor:
@@ -201,13 +197,9 @@ class Pipeline:
 
     def _superchunk(self, images, feat_valid, carry=None, instance_masks=False):
         """images: [SC + F - 1, H0, W0, 3] (no carry) or the SC new frames
-        (carry: 5 levels [F-1, h, w, 256] of the overlap frames), or the
-        same frames as a (y, uv) tuple of YUV 4:2:0 planes; feat_valid:
+        (carry: 5 levels [F-1, h, w, 256] of the overlap frames); feat_valid:
         [SC + F - 1] for the full window."""
-        if isinstance(images, tuple):
-            canvas = self.transform.from_yuv420(*images)
-        else:
-            canvas = self.transform(images)
+        canvas = self.transform(images)
         TRACER.mark("transform")
         feats = self.model.backbone_feats(canvas)
         if carry is not None:
@@ -227,16 +219,11 @@ class Pipeline:
     def forward_superchunk(self, images: torch.Tensor, feat_valid: torch.Tensor):
         """Public full-pipeline forward on one superchunk.
 
-        images: [SC + F - 1, H0, W0, 3] uint8/float (halo frames included),
-        or those frames as a (y [SC + F - 1, H0, W0], uv [SC + F - 1, H0/2,
-        W0/2, 2]) tuple of uint8 YUV 4:2:0 planes (`rgb_to_yuv420`);
+        images: [SC + F - 1, H0, W0, 3] uint8/float (halo frames included);
         feat_valid: [SC + F - 1] bool (False for zero halo frames beyond the
         sequence ends). Returns (orig_boxes [SC, D, 4], scores [SC, D],
         labels [SC, D], valid [SC, D], packed union masks [SC, H0, ceil(W0/8)])."""
-        if isinstance(images, tuple):
-            images = tuple(torch.as_tensor(p, device=self.device) for p in images)
-        else:
-            images = torch.as_tensor(images, device=self.device)
+        images = torch.as_tensor(images, device=self.device)
         feat_valid = torch.as_tensor(feat_valid, dtype=torch.bool, device=self.device)
         return self._run(images, feat_valid)[0]
 
@@ -276,15 +263,15 @@ class Pipeline:
         frame: boxes [D, 4], scores [D], labels [D], valid [D], union_mask
         [H, W] bool, and with `instance_masks=True` masks [D, H, W], each
         detection's pasted mask probabilities. All outputs stay on the device
-        until one fetch at the end. `transport="yuv420"` uploads each window
-        as YUV 4:2:0 planes (uint8 frames with even H, W): half the bytes,
-        with 4:2:0 chroma, so its pixels differ from "rgb"'s."""
+        until one fetch at the end."""
+        if transport != "rgb":  # the only form; kept as a keyword because the benchmark's drivers pass it
+            raise ValueError(f'transport must be "rgb", not {transport!r}')
         with TRACER.span("pipeline.infer_sequence", unit=True):
-            pending = self.infer_chunks(images, instance_masks=instance_masks, transport=transport)
+            pending = self.infer_chunks(images, instance_masks=instance_masks)
             return frame_detections(pending, images.shape[0], images.shape[2], instance_masks)
 
     @torch.inference_mode()
-    def infer_chunks(self, images: np.ndarray, *, instance_masks: bool = False, transport: str = "rgb") -> list:
+    def infer_chunks(self, images: np.ndarray, *, instance_masks: bool = False) -> list:
         """The superchunks of `infer_sequence`, each one's outputs left on the
         device: the host's part of a run, which never waits for the card."""
         use_carry = self.sf.fast > 1  # F = 1 has no overlap to carry
@@ -293,48 +280,38 @@ class Pipeline:
         with TRACER.span("pipeline.infer_chunks"):
             t = images.shape[0]
             for c in range(0, t, self.superchunk):
-                outs, next_carry = self.chunk_step(images, c, carry, instance_masks, transport)
+                outs, next_carry = self.chunk_step(images, c, carry, instance_masks)
                 carry = next_carry if use_carry else None
                 pending.append(outs)
             TRACER.count("pipeline.frames", t)
         return pending
 
-    def chunk_inputs(self, images: np.ndarray, c: int, carried: bool, transport: str = "rgb"):
+    def chunk_inputs(self, images: np.ndarray, c: int, carried: bool):
         """The device inputs of the superchunk that starts at frame `c` of
         `images` [T, H, W, 3]: its window (the SC new frames when the overlap
-        is `carried`, else with the halo; frames outside [0, T) zero) in
-        `transport` form, and feat_valid over the full window. On the card
-        both are staged in page-locked host memory, so that their upload
-        neither waits for the card nor makes it wait."""
-        if transport not in TRANSPORTS:
-            raise ValueError(f"transport must be one of {TRANSPORTS}, not {transport!r}")
+        is `carried`, else with the halo; frames outside [0, T) zero), and
+        feat_valid over the full window. On the card both are staged in
+        page-locked host memory, so that their upload neither waits for the
+        card nor makes it wait."""
         with TRACER.span("pipeline.chunk_inputs"):
             t = images.shape[0]
             widxs = np.arange(c - self.halo_left, c + self.superchunk + self.halo_right)
             idxs = widxs[self.sf.fast - 1 :] if carried else widxs
             outside = (idxs < 0) | (idxs >= t)
             pin = self.device.type == "cuda"
-            if transport == "yuv420":
-                window = images[np.clip(idxs, 0, t - 1)]
-                window[outside] = 0
-                n, h, w = window.shape[:3]
-                planes = (torch.empty((n, h, w), dtype=torch.uint8, pin_memory=pin),
-                          torch.empty((n, h // 2, w // 2, 2), dtype=torch.uint8, pin_memory=pin))
-                rgb_to_yuv420(window, out=tuple(p.numpy() for p in planes))
-            else:
-                planes = torch.empty((len(idxs), *images.shape[1:]), dtype=torch.from_numpy(images[:0]).dtype,
-                                     pin_memory=pin)
-                np.take(images, np.clip(idxs, 0, t - 1), axis=0, out=planes.numpy())
-                planes.numpy()[outside] = 0
+            window = torch.empty((len(idxs), *images.shape[1:]), dtype=torch.from_numpy(images[:0]).dtype,
+                                 pin_memory=pin)
+            np.take(images, np.clip(idxs, 0, t - 1), axis=0, out=window.numpy())
+            window.numpy()[outside] = 0
             valid = torch.empty(len(widxs), dtype=torch.bool, pin_memory=pin)
             valid.numpy()[:] = (widxs >= 0) & (widxs < t)
             upload = lambda x: x.to(self.device, non_blocking=True)  # noqa: E731
-            return (tuple(map(upload, planes)) if isinstance(planes, tuple) else upload(planes)), upload(valid)
+            return upload(window), upload(valid)
 
-    def chunk_step(self, images: np.ndarray, c: int, carry=None, instance_masks: bool = False, transport: str = "rgb"):
+    def chunk_step(self, images: np.ndarray, c: int, carry=None, instance_masks: bool = False):
         """The superchunk of `infer_sequence` that starts at frame `c` of
         `images` [T, H, W, 3] through `_run`. Returns (outputs, carry)."""
-        dev_images, dev_valid = self.chunk_inputs(images, c, carry is not None, transport)
+        dev_images, dev_valid = self.chunk_inputs(images, c, carry is not None)
         return self._run(dev_images, dev_valid, carry, instance_masks)
 
 
@@ -349,7 +326,6 @@ def build_pipeline(
     max_size: int | None = None,
     cfg: DetectionConfig | None = None,
     use_slow_fast: bool = True,
-    s2d_stem: bool = False,
     arch: str = "resnet50-fpn",
     vit: ViTConfig | None = None,
     device: str | torch.device | None = None,
@@ -359,8 +335,7 @@ def build_pipeline(
     absent unless the caller asks for "cpu"). Parameters are float32 and
     compute runs in `dtype`. Weights are torch's default init until the
     caller loads a state dict or calls `init_weights`. `use_slow_fast=False`
-    builds the plain per-frame Mask R-CNN (no SlowFast module);
-    `s2d_stem=True` the space-to-depth stem (`models/resnet_fpn.py`).
+    builds the plain per-frame Mask R-CNN (no SlowFast module).
     The image is resized to `min_size` / `max_size`, by default 800 / 1333
     (torchvision's). `arch="vitdet-b"` builds ViTDet-B's backbone and heads
     (`models/vit.py`; `vit`, default ViTDet-B's widths) over a square canvas
@@ -371,8 +346,8 @@ def build_pipeline(
         raise RuntimeError("build_pipeline: CUDA is not available; pass device='cpu' to run on the CPU")
     cfg = cfg or DetectionConfig(num_classes=num_classes)
     vit = vit or ViTConfig()
-    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype, use_slow_fast, s2d_stem,
-                             arch=arch, vit=vit).to(device)
+    model = SlowFastMaskRCNN(cfg, SlowFastConfig(slow=slow, fast=fast), dtype, use_slow_fast, arch=arch,
+                             vit=vit).to(device)
     square = vit.image if arch == "vitdet-b" else None
     min_size = min_size or square or 800
     max_size = max_size or square or 1333

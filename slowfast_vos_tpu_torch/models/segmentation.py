@@ -8,9 +8,7 @@ the reference's names, less its `maskrcnn_model.` prefix: a reference
 that prefix and keeps tensors the file lacks at their init.
 With `use_slow_fast=False` (the Mask R-CNN fine-tune, JAX
 `segmentation.py:40,63-69`) there is no SlowFast module: the RoI heads take
-the raw FPN levels, and the state dict is a plain Mask R-CNN's. With
-`s2d_stem=True` the backbone's conv1 is the space-to-depth stem's
-([64, 12, 4, 4], under the same name `backbone.body.conv1.weight`).
+the raw FPN levels, and the state dict is a plain Mask R-CNN's.
 With `arch="vitdet-b"` the backbone is ViTDet-B's ViT and simple feature
 pyramid (`models/vit.py`), the RPN head has two convs and the RoI heads
 are ViTDet's (4conv1fc box head, LayerNorm mask head): the same NHWC P2-P6,
@@ -45,7 +43,6 @@ class SlowFastMaskRCNN(nn.Module):
         sf: SlowFastConfig = SlowFastConfig(),
         dtype: torch.dtype = torch.bfloat16,
         use_slow_fast: bool = True,
-        s2d_stem: bool = False,
         arch: str = "resnet50-fpn",
         vit: ViTConfig = ViTConfig(),
     ):
@@ -55,7 +52,7 @@ class SlowFastMaskRCNN(nn.Module):
         self.cfg, self.sf, self.dtype, self.arch = cfg, sf, dtype, arch
         self.use_slow_fast = use_slow_fast
         vitdet = arch == "vitdet-b"
-        self.backbone = SimpleFeaturePyramid(vit, dtype) if vitdet else ResNet50FPN(dtype, s2d_stem)
+        self.backbone = SimpleFeaturePyramid(vit, dtype) if vitdet else ResNet50FPN(dtype)
         self.rpn = RegionProposalNetwork(num_convs=2 if vitdet else 1)
         self.roi_heads = RoIHeads(cfg.num_classes, dtype, vitdet=vitdet)
         if use_slow_fast:

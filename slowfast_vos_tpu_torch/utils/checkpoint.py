@@ -13,22 +13,13 @@ tensors and dicts that `torch.load(..., weights_only=True)` reads:
   meta:       a JSON-able dict (epoch, J&F, ...)
 
 Loading maps every tensor to the CPU; restoring puts each back bit for bit,
-on the devices of the target. `migrate_state_dict` adapts a state dict of
-one stem layout to a model of the other (JAX `migrate_params`).
+on the devices of the target.
 """
 from __future__ import annotations
 
 import os
 
 import torch
-
-from slowfast_vos_tpu_torch.models.resnet_fpn import stem_weight_from_s2d, stem_weight_to_s2d
-
-STEM_KEY = "backbone.body.conv1.weight"
-_STEM_REMAPS = {
-    ((64, 3, 7, 7), (64, 12, 4, 4)): stem_weight_to_s2d,
-    ((64, 12, 4, 4), (64, 3, 7, 7)): stem_weight_from_s2d,
-}
 
 
 def save_checkpoint(path: str, target, meta: dict | None = None) -> None:
@@ -72,19 +63,3 @@ def restore_checkpoint(path: str, target) -> dict:
         if target.scheduler is not None:
             target.scheduler.load_state_dict(payload["scheduler"])
     return payload["meta"]
-
-
-def migrate_state_dict(loaded: dict, target: dict) -> dict:
-    """`loaded` adapted to `target`'s layout where an exact transform exists
-    (JAX `utils/checkpoint.py:41-64`): the stem weight `STEM_KEY` remaps
-    between the standard 7x7 [64, 3, 7, 7] and the space-to-depth
-    [64, 12, 4, 4] layouts, both ways, when the two shapes say so. Any other
-    `loaded` passes through unchanged (the same object); a remapped one is a
-    new dict with the other tensors shared."""
-    w, t = loaded.get(STEM_KEY), target.get(STEM_KEY)
-    if not (torch.is_tensor(w) and torch.is_tensor(t)):
-        return loaded
-    remap = _STEM_REMAPS.get((tuple(w.shape), tuple(t.shape)))
-    if remap is None:
-        return loaded
-    return {**loaded, STEM_KEY: remap(w)}

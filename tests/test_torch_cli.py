@@ -192,3 +192,13 @@ def test_bench_exits_non_zero_without_cuda(monkeypatch, capsys):
         torch_bench.main(["--runs", "1"])
     assert exc.value.code != 0
     assert capsys.readouterr().out == ""
+
+
+def test_bench_device_fps_runs():
+    """`torch_bench.device_fps` uploads each chunk's window and runs the
+    superchunks, first and carried (the card is its place; the CPU pipeline
+    checks the plumbing and measures nothing)."""
+    pipe, _ = tiny_build(1, 3, TINY_HW, device="cpu")
+    clip = np.random.default_rng(7).integers(0, 256, (6, *TINY_HW, 3), dtype=np.uint8)
+    best, median = torch_bench.device_fps(pipe, clip, runs=1)
+    assert best == median > 0

@@ -7,7 +7,7 @@ convolution's weights and ends every convolution in one epilogue pass
 `tests/test_torch_cuda.py`). Held here against the form it replaced, kept in
 this file as its own reference (`unfolded_backbone`: each
 `FrozenBatchNorm2d`, ReLU and residual add on its own, the FPN's biases in
-its convolutions), in float32: outputs for both stems, the state dict and
+its convolutions), in float32: outputs, the state dict and
 buffers, a torchvision-named checkpoint, and the gradients of a fine-tune
 that trains backbone layers 2-4."""
 import pytest
@@ -15,18 +15,18 @@ import torch
 import torch.nn.functional as F
 
 from slowfast_vos_tpu_torch.models.layers import FrozenBatchNorm2d, fold_frozen_batch_norms, lecun_normal_, nchw, nhwc
-from slowfast_vos_tpu_torch.models.resnet_fpn import ResNet50FPN, space_to_depth
+from slowfast_vos_tpu_torch.models.resnet_fpn import ResNet50FPN
 from slowfast_vos_tpu_torch.ops import conv_epilogue as pce
 from slowfast_vos_tpu_torch.train.train_step import body_layers_to_train
 
 IMAGES = (2, 64, 96, 3)  # [N, H, W, 3]: every level at least 1x2, P6 included
 
 
-def seeded_backbone(s2d_stem: bool, seed: int = 0) -> ResNet50FPN:
+def seeded_backbone(seed: int = 0) -> ResNet50FPN:
     """A float32 backbone whose every frozen BatchNorm has its own scale,
     shift and statistics and whose FPN convolutions have biases (the
     benchmark's weight draws), so a dropped or misplaced term shows."""
-    model = lecun_normal_(ResNet50FPN(torch.float32, s2d_stem), torch.Generator().manual_seed(seed))
+    model = lecun_normal_(ResNet50FPN(torch.float32), torch.Generator().manual_seed(seed))
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -48,8 +48,6 @@ def unfolded_backbone(model: ResNet50FPN, images: torch.Tensor) -> list[torch.Te
     ReLUs as separate passes."""
     body, fpn = model.body, model.fpn
     x = nchw(images).to(model.dtype).contiguous(memory_format=torch.channels_last)
-    if body.s2d_stem:
-        x = F.pad(nchw(space_to_depth(nhwc(x), 2)), (2, 1, 2, 1))
     x = F.max_pool2d(F.relu(body.bn1(body.conv1(x))), 3, 2, padding=1)
     feats = []
     for layer in (body.layer1, body.layer2, body.layer3, body.layer4):
@@ -80,9 +78,8 @@ def assert_close_to_max(got: torch.Tensor, want: torch.Tensor, rel: float, what:
     assert scale > 0 and err <= rel * scale, f"{what}: max abs err {err:.3e} against {scale:.3e}"
 
 
-@pytest.mark.parametrize("s2d_stem", [False, True], ids=["7x7_stem", "s2d_stem"])
-def test_folded_backbone_matches_unfolded_form(s2d_stem):
-    model = seeded_backbone(s2d_stem)
+def test_folded_backbone_matches_unfolded_form():
+    model = seeded_backbone()
     x = images()
     with torch.no_grad():
         got, want = model(x), unfolded_backbone(model, x)
@@ -97,7 +94,7 @@ def test_fold_leaves_state_dict_and_buffers_as_they_are():
     dict has torchvision's keys and the same tensors after a forward; a
     torchvision-named checkpoint (with BatchNorm2d's counters) loads
     strictly and gives the same outputs."""
-    model = seeded_backbone(False)
+    model = seeded_backbone()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     assert "body.bn1.running_var" in before and "body.layer1.0.downsample.1.weight" in before
     # 53 frozen BatchNorms' four buffers, 53 body convolutions, 8 FPN convolutions with biases
@@ -124,7 +121,7 @@ def test_fold_of_each_batch_norm_is_its_forward():
     buffers, taken together, split back to each BatchNorm's channels. The
     fold's formula is held against JAX's frozen BatchNorm in
     `tests/test_torch_models.py::test_frozen_batchnorm_matches_jax`."""
-    model = seeded_backbone(False)
+    model = seeded_backbone()
     folds = fold_frozen_batch_norms(model.body)
     assert len(folds) == 53
     x = torch.randn(2, 2048, 3, 3, generator=torch.Generator().manual_seed(3))
@@ -144,7 +141,7 @@ def test_folded_backbone_gradients_match_unfolded_form():
     pre-activation within rounding of 0 takes the other side of a ReLU in
     one of the two forms, and that alone moves a layer2 leaf's gradient by
     ~1e-3 of its norm."""
-    model = seeded_backbone(False)
+    model = seeded_backbone()
     model.dtype = torch.float64
     to_train = body_layers_to_train(3)
     trained = {}

@@ -163,18 +163,6 @@ def test_level_assignment_on_the_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_from_yuv420_on_the_card_matches_cpu(cuda_device):
-    """The same uint8 planes decoded on the card and on the CPU, f32 (the
-    resize tolerance of tests/test_torch_models.py, atol 1e-4)."""
-    rng = np.random.default_rng(7)
-    y = torch.from_numpy(rng.integers(0, 256, (3, 120, 200), dtype=np.uint8))
-    uv = torch.from_numpy(rng.integers(0, 256, (3, 60, 100, 2), dtype=np.uint8))
-    tf = ImageTransform((120, 200), min_size=128, max_size=256)
-    got = tf.from_yuv420(y.to(cuda_device), uv.to(cuda_device))
-    torch.testing.assert_close(got.cpu(), tf.from_yuv420(y, uv), atol=1e-4, rtol=0)
-
-
-@pytest.mark.cuda
 def test_blocked_nms_on_the_card_matches_fixpoint(cuda_device):
     """Blocked sweep (B = 128, a ragged last block) on the card against the
     fixpoint on the card and on the CPU, index for index, on quantized
@@ -401,19 +389,18 @@ def assert_same_detections(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("instance_masks", [False, True])
-@pytest.mark.parametrize("transport", ["rgb", "yuv420"])
 @pytest.mark.parametrize("size", ["small", "full"])
-def test_graph_path_equals_eager_bit_for_bit(cuda_device, size, transport, instance_masks):
+def test_graph_path_equals_eager_bit_for_bit(cuda_device, size, instance_masks):
     """`infer_sequence` through the graphs (the first run: each key's first
     chunk eager, then replays; the second run: replays only) against the
     eager path on the same model: every output equal bit for bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pipe, eager, clip = graph_and_eager(size)
-    want = eager.infer_sequence(clip, instance_masks=instance_masks, transport=transport)
+    want = eager.infer_sequence(clip, instance_masks=instance_masks)
     assert any(d["valid"].any() for d in want)
     for _ in range(2):
-        assert_same_detections(pipe.infer_sequence(clip, instance_masks=instance_masks, transport=transport), want)
+        assert_same_detections(pipe.infer_sequence(clip, instance_masks=instance_masks), want)
     assert pipe.graphs.captures == 2 and len(pipe.graphs.graphs) == 2  # first and carry
 
 
@@ -441,18 +428,17 @@ def test_graph_replays_in_place_weight_updates_and_recaptures_moved_ones(cuda_de
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("transport", ["rgb", "yuv420"])
-def test_graph_path_has_no_host_synchronize(cuda_device, transport):
+def test_graph_path_has_no_host_synchronize(cuda_device):
     """After a first run has captured the graphs, the host's part of a run
     (staging, uploads, copies into the static inputs, replays, clones)
     under the sync debug mode "error"; only the final fetch waits."""
     pipe, eager, clip = graph_and_eager("small")
-    want = eager.infer_sequence(clip, transport=transport)
-    pipe.infer_sequence(clip, transport=transport)
+    want = eager.infer_sequence(clip)
+    pipe.infer_sequence(clip)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pending = pipe.infer_chunks(clip, transport=transport)
+        pending = pipe.infer_chunks(clip)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert_same_detections(frame_detections(pending, clip.shape[0], clip.shape[2]), want)
@@ -1186,8 +1172,7 @@ def test_k8_autograd_matches_autograd_through_the_plain_version(cuda_device, mod
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s2d_stem", [False, True], ids=["7x7_stem", "s2d_stem"])
-def test_backbone_on_k8_matches_the_cpu(cuda_device, s2d_stem):
+def test_backbone_on_k8_matches_the_cpu(cuda_device):
     """The folded ResNet-50 + FPN in float32 (TF32 off) on the card, through
     K8 (K8_PER_BACKBONE launches), against the same model's plain path on
     the CPU."""
@@ -1195,7 +1180,7 @@ def test_backbone_on_k8_matches_the_cpu(cuda_device, s2d_stem):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = seeded_backbone(s2d_stem)
+    model = seeded_backbone()
     x = images()
     with torch.no_grad():
         want = model(x)

@@ -24,18 +24,17 @@ from torch_port_common import noisy_variables
 from slowfast_vos_tpu.models.pipeline import build_pipeline as jax_build_pipeline
 from slowfast_vos_tpu_torch.models import graphs, pipeline, transform
 from slowfast_vos_tpu_torch.models.pipeline import Pipeline, build_pipeline
-from slowfast_vos_tpu_torch.models.transform import rgb_to_yuv420
 from slowfast_vos_tpu_torch.ops import cuda_build, roi_align
 
 T = 10  # chunks at 0 (first), 4 (carry) and 8 (carry, two frames past the end)
 
 
-def clip(dtype=np.uint8, seed=3, t=T):
-    frames = np.random.default_rng(seed).integers(0, 256, (t, *HW, 3), dtype=np.uint8)
+def clip(dtype=np.uint8, seed=3, t=T, hw=HW):
+    frames = np.random.default_rng(seed).integers(0, 256, (t, *hw, 3), dtype=np.uint8)
     return frames if dtype == np.uint8 else (frames / 255.0).astype(dtype)
 
 
-def window_before(pipe, images, c, carried, transport):
+def window_before(pipe, images, c, carried):
     """`chunk_inputs`' window and feat_valid as numpy, as it computed them
     before the staging (a fancy-indexed copy, zeroed outside [0, T))."""
     t = images.shape[0]
@@ -43,25 +42,41 @@ def window_before(pipe, images, c, carried, transport):
     idxs = widxs[pipe.sf.fast - 1:] if carried else widxs
     window = images[np.clip(idxs, 0, t - 1)].copy()
     window[~((idxs >= 0) & (idxs < t))] = 0
-    planes = rgb_to_yuv420(window) if transport == "yuv420" else (window,)
-    return planes, (widxs >= 0) & (widxs < t)
+    return window, (widxs >= 0) & (widxs < t)
 
 
-@pytest.mark.parametrize("c,carried", [(0, False), (4, True), (8, True)], ids=["first", "carry", "last"])
-@pytest.mark.parametrize("transport,dtype", [("rgb", np.uint8), ("rgb", np.float32), ("yuv420", np.uint8)])
-def test_staged_chunk_inputs_equal_the_window_before(c, carried, transport, dtype):
+# (T, frame size, chunk start, carried), SC = 4 and F = 3: the first, a carry
+# and the last (partly out-of-range) chunk of T = 10; a clip shorter than one
+# window, one of exactly one superchunk, and a one-frame carry chunk; the
+# first three at an odd frame size.
+CHUNKS = {
+    "first": (T, HW, 0, False),
+    "carry": (T, HW, 4, True),
+    "last": (T, HW, 8, True),
+    "short_clip": (2, HW, 0, False),
+    "one_superchunk": (4, HW, 0, False),
+    "one_frame_carry": (5, HW, 4, True),
+    "odd_first": (T, (61, 101), 0, False),
+    "odd_carry": (T, (61, 101), 4, True),
+    "odd_last": (T, (61, 101), 8, True),
+}
+
+
+@pytest.fixture(scope="module")
+def staging_pipe():
+    return port_pipeline(seed=0)
+
+
+@pytest.mark.parametrize("t,hw,c,carried", CHUNKS.values(), ids=CHUNKS.keys())
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_staged_chunk_inputs_equal_the_window_before(staging_pipe, dtype, t, hw, c, carried):
     """The window staged into host buffers (page-locked on the card) and
-    feat_valid, for the first, a carry and the last (partly out-of-range)
-    chunk: equal to the window as `chunk_inputs` made it before."""
-    pipe = port_pipeline(seed=0)
-    images = clip(dtype)
-    want_planes, want_valid = window_before(pipe, images, c, carried, transport)
-    got, got_valid = pipe.chunk_inputs(images, c, carried, transport)
-    got = got if isinstance(got, tuple) else (got,)
-    assert len(got) == len(want_planes)
-    for g, w in zip(got, want_planes):
-        assert g.dtype == torch.from_numpy(w).dtype and g.is_contiguous()
-        np.testing.assert_array_equal(g.numpy(), w)
+    feat_valid: equal to the window as `chunk_inputs` made it before."""
+    images = clip(dtype, t=t, hw=hw)
+    want, want_valid = window_before(staging_pipe, images, c, carried)
+    got, got_valid = staging_pipe.chunk_inputs(images, c, carried)
+    assert got.dtype == torch.from_numpy(want).dtype and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
     assert got_valid.dtype == torch.bool
     np.testing.assert_array_equal(got_valid.numpy(), want_valid)
 
@@ -70,24 +85,24 @@ def _fresh_constant(values, dtype, device):
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-# Every constant of the superchunk in two runs: RGB with the packed union
-# (mean and std, packbits' bit weights), YUV 4:2:0 planes with instance masks
-# (the decode's canvas); both invert boxes and pool through the plain RoIAlign.
-PATHS = [("rgb", False), ("yuv420", True)]
+# Every constant of the superchunk in two runs: the packed union (packbits'
+# bit weights) and instance masks; both normalize the frames (mean and std),
+# invert boxes and pool through the plain RoIAlign.
+PATHS = [False, True]
 
 
-@pytest.mark.parametrize("transport,instance_masks", PATHS)
-def test_cached_constants_give_the_outputs_bit_for_bit(monkeypatch, transport, instance_masks):
+@pytest.mark.parametrize("instance_masks", PATHS)
+def test_cached_constants_give_the_outputs_bit_for_bit(monkeypatch, instance_masks):
     """Mean and std, the inverse-box scale, the bit weights and the plain
     RoIAlign's level tables, built once per device, against the same
     constants built at every call (as before), over a first and a ragged
     carry chunk."""
     pipe = port_pipeline(seed=2)
     images = clip(t=6)
-    cached = pipe.infer_sequence(images, instance_masks=instance_masks, transport=transport)
+    cached = pipe.infer_sequence(images, instance_masks=instance_masks)
     for module in (transform, pipeline, roi_align):
         monkeypatch.setattr(module, "device_constant", _fresh_constant)
-    fresh = pipe.infer_sequence(images, instance_masks=instance_masks, transport=transport)
+    fresh = pipe.infer_sequence(images, instance_masks=instance_masks)
     assert len(cached) == len(fresh) == 6
     assert any(d["valid"].any() for d in cached)
     for a, b in zip(cached, fresh):
@@ -98,28 +113,28 @@ def test_cached_constants_give_the_outputs_bit_for_bit(monkeypatch, transport, i
 
 def test_superchunk_builds_no_tensor_from_host_data(monkeypatch):
     """Once its constants exist, a superchunk (first and carried, both
-    transports, both finalize forms) calls neither `torch.tensor` nor
+    finalize forms) calls neither `torch.tensor` nor
     `torch.as_tensor`: on the card each would be a copy from pageable host
     memory and a host synchronize, and an error inside a graph capture."""
     pipe = port_pipeline(seed=0)
     images = clip(t=6)
 
-    def superchunks(transport, masks, starts):
+    def superchunks(masks, starts):
         carry = None
         for c in starts:
-            dev_images, dev_valid = pipe.chunk_inputs(images, c, carry is not None, transport)
+            dev_images, dev_valid = pipe.chunk_inputs(images, c, carry is not None)
             with torch.inference_mode():
                 outs, carry = pipe._superchunk(dev_images, dev_valid, carry, masks)
             assert outs[0].shape[0] == SC
 
-    for transport, masks in PATHS:  # warm: the constants of every path
-        superchunks(transport, masks, [0])
+    for masks in PATHS:  # warm: the constants of every path
+        superchunks(masks, [0])
     calls = []
     for name in ("tensor", "as_tensor"):
         real = getattr(torch, name)
         monkeypatch.setattr(torch, name, lambda *a, _real=real, _name=name, **kw: calls.append(_name) or _real(*a, **kw))
-    for transport, masks in PATHS:
-        superchunks(transport, masks, [0, SC])
+    for masks in PATHS:
+        superchunks(masks, [0, SC])
     assert calls == []
 
 
@@ -182,13 +197,12 @@ def test_superchunk_key_tells_the_graphs_apart():
     pipe = port_pipeline(seed=0)
     images = clip()
     keys = set()
-    for transport in ("rgb", "yuv420"):
-        for c, carried in ((0, False), (4, True), (8, True)):
-            dev_images, dev_valid = pipe.chunk_inputs(images, c, carried, transport)
-            carry = [torch.zeros((2, 4, 4, 8))] * 5 if carried else None
-            for masks in (False, True):
-                keys.add(graphs.superchunk_key(dev_images, dev_valid, carry, masks))
-    assert len(keys) == 2 * 2 * 2  # transport x carried x instance masks; the last chunk is a carry chunk
+    for c, carried in ((0, False), (4, True), (8, True)):
+        dev_images, dev_valid = pipe.chunk_inputs(images, c, carried)
+        carry = [torch.zeros((2, 4, 4, 8))] * 5 if carried else None
+        for masks in (False, True):
+            keys.add(graphs.superchunk_key(dev_images, dev_valid, carry, masks))
+    assert len(keys) == 2 * 2  # carried x instance masks; the last chunk is a carry chunk
     float_images, dev_valid = pipe.chunk_inputs(clip(np.float32), 0, False)
     assert graphs.superchunk_key(float_images, dev_valid, None, False) not in keys
 
@@ -232,8 +246,8 @@ def test_launches_recorded_while_capturing_count_per_replay():
 
 
 def test_infer_sequence_matches_jax_across_a_carry_chunk():
-    """Six frames, a first chunk of 4 and a ragged carry chunk of 2, RGB
-    transport, the same weights through `state_dict_from_flax`: the port's
+    """Six frames, a first chunk of 4 and a ragged carry chunk of 2, the
+    same weights through `state_dict_from_flax`: the port's
     `infer_sequence` against the JAX package's."""
     jpipe, jmodel = jax_build_pipeline(
         3, 3, HW, min_size=128, max_size=256, dtype=jnp.float32, backbone_batch=SC, chunk=SC, superchunk=SC

@@ -40,10 +40,18 @@ def apply(jmodel, variables, method, *args, **kw):
     return jax.jit(lambda v, *a: jmodel.apply(v, *a, method=method, **kw))(variables, *args)
 
 
-@pytest.mark.parametrize("hw", [(120, 200), (108, 192)])
-def test_transform_matches_jax(hw):
+@pytest.mark.parametrize(
+    "hw,dtype",
+    [((120, 200), np.uint8), ((108, 192), np.uint8), ((61, 101), np.uint8), ((119, 201), np.uint8),
+     ((120, 200), np.float32)],
+    ids=["hw0", "hw1", "hw2", "hw3", "float32"],
+)
+def test_transform_matches_jax(hw, dtype):
+    """uint8 frames at even and odd sizes, and float32 frames in [0, 1]."""
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (2, *hw, 3), dtype=np.uint8)
+    if dtype == np.float32:
+        images = (images / 255.0).astype(np.float32)
     jt, pt = JaxTransform(hw, min_size=128, max_size=256), ImageTransform(hw, min_size=128, max_size=256)
     assert (pt.resized_hw, pt.canvas_hw) == (jt.resized_hw, jt.canvas_hw)
     got = pt(t(images))

@@ -36,7 +36,8 @@ from slowfast_vos_tpu.models.transform import ImageTransform, resized_hw
 # (a) resize convention
 # ---------------------------------------------------------------------------
 
-RESOLUTIONS = [(480, 854), (500, 889), (60, 100), (480, 640), (1080, 1920), (720, 1280)]
+RESOLUTIONS = [(480, 854), (500, 889), (60, 100), (480, 640), (1080, 1920), (720, 1280), (61, 101), (479, 853),
+               (1079, 1919)]
 
 
 @pytest.mark.parametrize("hw", RESOLUTIONS)

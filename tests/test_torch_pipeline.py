@@ -1,8 +1,10 @@
 """The PyTorch port's inference slice as a whole: `forward_superchunk`
 against the JAX package's at the `__graft_entry__` shape (120x200 frames,
 min 128, max 256, superchunk 4, SlowFast 3-3) in f32, `infer_sequence`
-across a carry chunk against the port's own plain superchunks, the bit
-packing, the device rules, and a static check that no port file imports JAX.
+across a carry chunk against the port's own plain superchunks (also at
+SlowFast 1-1 and 7-7 and at 61x101), its refusal of any transport but RGB,
+the bit packing, the device rules, and a static check that no port file
+imports JAX.
 
 Tolerances of the whole slice (f32 on the CPU, two libraries summing in
 different orders): valid flags and labels exact; boxes within 0.05 px at the
@@ -31,9 +33,9 @@ SCORE_ATOL = 1e-4
 MASK_SHARE = 0.01
 
 
-def port_pipeline(variables=None, seed=0):
+def port_pipeline(variables=None, seed=0, slow=3, fast=3, hw=HW):
     pipe, model = build_pipeline(
-        3, 3, HW, min_size=128, max_size=256, dtype=torch.float32, device="cpu", superchunk=SC
+        slow, fast, hw, min_size=128, max_size=256, dtype=torch.float32, device="cpu", superchunk=SC
     )
     if variables is None:
         init_weights(model, seed)
@@ -74,13 +76,17 @@ def test_forward_superchunk_matches_jax():
     assert_detections_close(got, want, HW[1])
 
 
-def test_infer_sequence_carry_matches_plain_superchunks():
+@pytest.mark.parametrize(
+    "slow,fast,hw", [(3, 3, HW), (1, 1, HW), (7, 7, HW), (3, 3, (61, 101))], ids=["sf3-3", "sf1-1", "sf7-7", "odd_hw"]
+)
+def test_infer_sequence_carry_matches_plain_superchunks(slow, fast, hw):
     """Six frames: a first chunk of 4 and a ragged carry chunk of 2 that
-    reuses the overlap frames' backbone features. Against each window run
+    reuses the overlap frames' backbone features (F - 1 of them: none at
+    1-1, six, more than the superchunk, at 7-7). Against each window run
     through `forward_superchunk` whole (no carry)."""
-    pipe = port_pipeline(seed=1)
+    pipe = port_pipeline(seed=1, slow=slow, fast=fast, hw=hw)
     t = 6
-    clip = np.random.default_rng(1).integers(0, 256, (t, *HW, 3), dtype=np.uint8)
+    clip = np.random.default_rng(1).integers(0, 256, (t, *hw, 3), dtype=np.uint8)
     dets = pipe.infer_sequence(clip)
     assert len(dets) == t
     hl, hr = pipe.halo_left, pipe.halo_right
@@ -91,9 +97,19 @@ def test_infer_sequence_carry_matches_plain_superchunks():
         want = [o.numpy() for o in pipe.forward_superchunk(torch.from_numpy(window), torch.from_numpy(valid))]
         for f in range(min(SC, t - c)):
             d = dets[c + f]
-            assert d["union_mask"].shape == HW and d["union_mask"].dtype == bool
+            assert d["union_mask"].shape == hw and d["union_mask"].dtype == bool
             got = (d["boxes"], d["scores"], d["labels"], d["valid"], np.packbits(d["union_mask"], axis=-1))
-            assert_detections_close(got, [w[f] for w in want], HW[1])
+            assert_detections_close(got, [w[f] for w in want], hw[1])
+
+
+@pytest.mark.parametrize("transport", ["yuv420", "yuv422"])
+def test_unknown_transport_raises(transport):
+    """RGB is the only form frames reach the device in; any other name,
+    the retired YUV 4:2:0 included, is refused before anything runs."""
+    pipe = port_pipeline(seed=0)
+    clip = np.zeros((2, *HW, 3), np.uint8)
+    with pytest.raises(ValueError, match="transport"):
+        pipe.infer_sequence(clip, transport=transport)
 
 
 @pytest.mark.parametrize("width", [8, 13, 200])

@@ -103,7 +103,7 @@ def test_reference_pth_loads_with_no_unused_key(jax_side, tmp_path):
         pipe, model = port_pipeline()
         report = load_init(path, model)
         counted = [k for k in sd if "num_batches_tracked" not in k]
-        assert report == {"converted": len(counted), "unused_source_keys": [], "untouched": [], "migrated": []}
+        assert report == {"converted": len(counted), "unused_source_keys": [], "untouched": []}
         assert_state_dicts_equal(model.state_dict(), sd)
         want = jax_side["forward"](_load_init(path, jax_side["init"]))
         assert_detections_close(port_forward(pipe, jax_side["inputs"]), want, TINY_HW[1])
@@ -142,13 +142,21 @@ def test_maskrcnn_checkpoint_leaves_slow_fast_at_init(jax_side, tmp_path):
         shutil.rmtree(tmp_path, ignore_errors=True)  # full-model files
 
 
-def test_shape_mismatch_raises_and_loads_nothing(tmp_path):
+@pytest.mark.parametrize(
+    "key,shape",
+    [("rpn.head.conv.weight", (256, 256, 1, 1)), ("backbone.body.conv1.weight", (64, 12, 4, 4))],
+    ids=["rpn_conv", "stem_4x4"],
+)
+def test_shape_mismatch_raises_and_loads_nothing(tmp_path, key, shape):
+    """A tensor of another shape (a 1x1 RPN conv; a [64, 12, 4, 4] stem, as
+    a file of a 4x4 stem over space-to-depth input holds) raises naming its
+    key, and the file's other tensors are not loaded either."""
     _, model = port_pipeline()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     path = str(tmp_path / "bad.pth")
     torch.save({"maskrcnn_model.rpn.head.cls_logits.bias": torch.ones(before["rpn.head.cls_logits.bias"].shape),
-                "maskrcnn_model.rpn.head.conv.weight": torch.zeros(256, 256, 1, 1)}, path)
-    with pytest.raises(ValueError, match="rpn.head.conv.weight"):
+                f"maskrcnn_model.{key}": torch.zeros(shape)}, path)
+    with pytest.raises(ValueError, match=key):
         load_init(path, model)
     assert_state_dicts_equal(model.state_dict(), before)
 
